@@ -1,0 +1,400 @@
+"""LoRA layers, state-dict surgery and the AddNet export.
+
+Counterpart of `leco_tpu/lora.py`. Every Linear and Conv2d of the UNet is a
+`LoRALinear` / `LoRAConv2d`; `apply_lora_spec` adds the rank-r branch
+(`lora_down`, `lora_up`, fp32 masters) to the layers whose dotted module
+name the `LoRASpec` matches. A layer then runs in one of three modes, which
+stand in for the JAX package's choice of parameter tree per call:
+
+  * "on"     (default) W x + up(down(x)) * alpha/r, in the compute dtype —
+              the differentiated target pass;
+  * "off"    W x only — the LoRA-off reference predictions;
+  * "folded" (W + up·down * alpha/r) x with the fold computed once
+              (`folded_lora`, the JAX package's `fold_lora_params`) — the
+              inner partial denoise, which reuses the same weights for every
+              step under no_grad.
+
+The LoRA ride-along concat GEMM of the JAX package (`lora.py:141-152`) is
+not ported: its reason is the TPU's matrix-unit lane padding.
+
+Export writes the A1111-AddNet / kohya layout,
+`lora_unet_<path>.{lora_down.weight, lora_up.weight, alpha}`, to
+`.safetensors` with a small writer of its own (8-byte little-endian header
+length, JSON header, raw little-endian tensor bytes), and to a `torch.save`
+file for any other extension (the reference's behaviour).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import math
+import os
+import re
+from typing import Iterator, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+LORA_PREFIX_UNET = "lora_unet"
+MODES = ("on", "off", "folded")
+
+_TRANSFORMER_RE = re.compile(r"(^|\.)attentions\.\d+(\.|$)")
+_CONV_BLOCK_RE = re.compile(r"(^|\.)(resnets\.\d+|downsamplers\.0|upsamplers\.0)(\.|$)")
+
+
+@dataclasses.dataclass(frozen=True)
+class LoRASpec:
+    """Static LoRA network description."""
+
+    rank: int = 4
+    alpha: float = 1.0
+    network_type: str = "lierla"  # or "c3lier"
+    train_method: str = "full"
+
+    @property
+    def stored_alpha(self) -> float:
+        """alpha falls back to the (unclamped) rank when 0/None
+        (reference lora.py:86)."""
+        return self.alpha if self.alpha else float(self.rank)
+
+    def matches(self, name: str) -> bool:
+        """Is the layer with dotted module name `name` a LoRA target? The
+        same rule as the JAX package, on diffusers-style names."""
+        m = self.train_method
+        if m == "noxattn":
+            if "attn2" in name or "time_embed" in name:
+                return False
+        elif m == "innoxattn":
+            if "attn2" in name:
+                return False
+        elif m == "selfattn":
+            if "attn1" not in name:
+                return False
+        elif m == "xattn":
+            if "attn2" not in name:
+                return False
+        elif m != "full":
+            raise NotImplementedError(f"train_method: {m} is not implemented.")
+
+        in_transformer = bool(_TRANSFORMER_RE.search(name))
+        if self.network_type == "lierla":
+            return in_transformer
+        if self.network_type == "c3lier":
+            return in_transformer or bool(_CONV_BLOCK_RE.search(name))
+        raise ValueError(f"unknown network type: {self.network_type}")
+
+
+def _kaiming_down(shape, fan_in: int, generator, device) -> torch.Tensor:
+    """torch kaiming_uniform_(a=sqrt(5)) == U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    (reference lora.py:91)."""
+    bound = 1.0 / math.sqrt(fan_in)
+    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    return u * (2 * bound) - bound
+
+
+def _fold_weight(w, down, up, scale: float) -> torch.Tensor:
+    """W + compose(down, up) * scale, summed in fp32 and rounded to W's
+    dtype once (JAX `fold_lora_params`). Dense: up (out, r) @ down (r, in);
+    conv: up (out, r, 1, 1) composed with down (r, in, kh, kw)."""
+    if down.ndim == 4:
+        delta = torch.einsum("or,rikl->oikl", up.flatten(1).float(), down.float())
+    else:
+        delta = up.float() @ down.float()
+    return (w.float() + delta * scale).to(w.dtype)
+
+
+class _LoRALayer(nn.Module):
+    """Mode and branch bookkeeping shared by the two layer kinds."""
+
+    lora_down: Optional[nn.Parameter]
+    lora_up: Optional[nn.Parameter]
+
+    def _init_lora_state(self) -> None:
+        self.lora_down = None
+        self.lora_up = None
+        self.lora_scale = 0.0
+        self.mode = "on"
+        self.folded: Optional[torch.Tensor] = None
+
+    @property
+    def has_lora(self) -> bool:
+        return self.lora_down is not None
+
+    def _weight(self) -> torch.Tensor:
+        if self.has_lora and self.mode == "folded":
+            return self.folded
+        return self.weight
+
+    def _branch_on(self) -> bool:
+        return self.has_lora and self.mode == "on"
+
+    def fold(self) -> None:
+        self.folded = _fold_weight(self.weight, self.lora_down, self.lora_up, self.lora_scale)
+
+
+class LoRALinear(_LoRALayer):
+    """nn.Linear (weight (out, in), optional bias) in its own parameter
+    dtype, computing in the input's dtype, with an optional LoRA branch
+    `lora_down` (r, in) / `lora_up` (out, r)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self._init_lora_state()
+
+    def add_lora(self, spec: LoRASpec, generator: torch.Generator) -> None:
+        r = spec.rank
+        dev = self.weight.device
+        self.lora_down = nn.Parameter(
+            _kaiming_down((r, self.in_features), self.in_features, generator, dev)
+        )
+        self.lora_up = nn.Parameter(
+            torch.zeros(self.out_features, r, device=dev, dtype=torch.float32)
+        )
+        self.lora_scale = spec.stored_alpha / r
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.linear(x, self._weight().to(dt), bias)
+        if self._branch_on():
+            delta = F.linear(F.linear(x, self.lora_down.to(dt)), self.lora_up.to(dt))
+            y = y + delta * self.lora_scale
+        return y
+
+
+class LoRAConv2d(_LoRALayer):
+    """nn.Conv2d (weight (out, in, kh, kw), bias) with an optional LoRA
+    branch: `lora_down` a conv with the base kernel, stride and padding
+    (r, in, kh, kw), `lora_up` a 1x1 conv (out, r, 1, 1); r is clamped to
+    min(rank, in, out) (reference lora.py:72)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, bias: bool = True):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size, kernel_size)
+        )
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+        self._init_lora_state()
+
+    def add_lora(self, spec: LoRASpec, generator: torch.Generator) -> None:
+        r = min(spec.rank, self.in_channels, self.out_channels)
+        k = self.kernel_size
+        dev = self.weight.device
+        self.lora_down = nn.Parameter(
+            _kaiming_down((r, self.in_channels, k, k), self.in_channels * k * k,
+                          generator, dev)
+        )
+        self.lora_up = nn.Parameter(
+            torch.zeros(self.out_channels, r, 1, 1, device=dev, dtype=torch.float32)
+        )
+        self.lora_scale = spec.stored_alpha / r  # lora.py:86-87
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x, self._weight().to(dt), bias, self.stride, self.padding)
+        if self._branch_on():
+            h = F.conv2d(x, self.lora_down.to(dt), None, self.stride, self.padding)
+            y = y + F.conv2d(h, self.lora_up.to(dt)) * self.lora_scale
+        return y
+
+
+# ---------------------------------------------------------------------------
+# whole-model helpers
+# ---------------------------------------------------------------------------
+
+
+def lora_layers(model: nn.Module) -> Iterator[tuple[str, _LoRALayer]]:
+    for name, mod in model.named_modules():
+        if isinstance(mod, _LoRALayer) and mod.has_lora:
+            yield name, mod
+
+
+def apply_lora_spec(model: nn.Module, spec: LoRASpec,
+                    generator: torch.Generator) -> int:
+    """Add the LoRA branch to every layer `spec` matches; returns the count.
+    Layers are visited in module order, so one generator seed gives one
+    initialization."""
+    n = 0
+    for name, mod in model.named_modules():
+        if isinstance(mod, _LoRALayer) and spec.matches(name):
+            mod.add_lora(spec, generator)
+            n += 1
+    return n
+
+
+def lora_parameters(model: nn.Module) -> dict[str, nn.Parameter]:
+    """The trainable tree: {"<layer>.lora_down": p, "<layer>.lora_up": p}."""
+    out = {}
+    for name, mod in lora_layers(model):
+        out[f"{name}.lora_down"] = mod.lora_down
+        out[f"{name}.lora_up"] = mod.lora_up
+    return out
+
+
+@contextlib.contextmanager
+def lora_mode(model: nn.Module, mode: str):
+    """Run every LoRA layer of `model` in `mode` inside the block."""
+    if mode not in MODES:
+        raise ValueError(f"unknown LoRA mode {mode}")
+    layers = [m for _, m in lora_layers(model)]
+    for m in layers:
+        m.mode = mode
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.mode = "on"
+
+
+@contextlib.contextmanager
+def folded_lora(model: nn.Module):
+    """Fold each LoRA into its base weight once, run the block in "folded"
+    mode, and drop the folded copies after it."""
+    layers = [m for _, m in lora_layers(model)]
+    with torch.no_grad():
+        for m in layers:
+            m.fold()
+    try:
+        with lora_mode(model, "folded"):
+            yield
+    finally:
+        for m in layers:
+            m.folded = None
+
+
+# ---------------------------------------------------------------------------
+# state-dict surgery (the JAX package's pytree functions, on flat dicts)
+# ---------------------------------------------------------------------------
+
+
+def split_lora_params(state: dict) -> tuple[dict, dict]:
+    """Full state dict -> (base, lora) by leaf name."""
+    base = {k: v for k, v in state.items() if not k.rsplit(".", 1)[-1].startswith("lora_")}
+    lora = {k: v for k, v in state.items() if k.rsplit(".", 1)[-1].startswith("lora_")}
+    return base, lora
+
+
+def merge_params(base: dict, lora: dict) -> dict:
+    return {**base, **lora}
+
+
+def fold_lora_params(base: dict, lora: dict, spec: LoRASpec) -> dict:
+    """(base, lora) -> a base-shaped state dict with every targeted weight
+    replaced by W + compose(down, up) * (alpha / r)."""
+    out = dict(base)
+    for layer in sorted({k.rsplit(".", 1)[0] for k in lora}):
+        down = lora[f"{layer}.lora_down"]
+        up = lora[f"{layer}.lora_up"]
+        r = down.shape[0]  # conv r may be clamped (lora.py:72)
+        out[f"{layer}.weight"] = _fold_weight(
+            base[f"{layer}.weight"], down, up, spec.stored_alpha / r
+        )
+    return out
+
+
+def lora_module_names(lora: dict) -> list[str]:
+    """Export-layer names 'lora_unet_<path>' per layer, checked unique (the
+    reference's duplicate-name guard, lora.py:139-144)."""
+    layers = sorted({k.rsplit(".", 1)[0] for k in lora})
+    names = sorted({LORA_PREFIX_UNET + "_" + p.replace(".", "_") for p in layers})
+    if len(names) != len(layers):
+        raise ValueError(
+            f"duplicated lora name after path join: {len(layers)} layers -> "
+            f"{len(names)} names"
+        )
+    return names
+
+
+def count_lora_modules(lora: dict) -> int:
+    return len(lora_module_names(lora))
+
+
+def export_lora_state(lora: dict, spec: LoRASpec,
+                      save_dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+    """{"<layer>.lora_down": t, ...} -> {AddNet key: CPU tensor}. The port
+    already stores both factors in torch layout, so nothing is transposed."""
+    state = {}
+    for layer in sorted({k.rsplit(".", 1)[0] for k in lora}):
+        name = LORA_PREFIX_UNET + "_" + layer.replace(".", "_")
+        for part in ("lora_down", "lora_up"):
+            t = lora[f"{layer}.{part}"].detach()
+            state[f"{name}.{part}.weight"] = t.to("cpu", save_dtype).contiguous()
+        state[f"{name}.alpha"] = torch.tensor(spec.stored_alpha, dtype=save_dtype)
+    return dict(sorted(state.items()))
+
+
+_ST_DTYPES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+_ST_FROM_NAME = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def write_safetensors(path: str | os.PathLike, tensors: dict[str, torch.Tensor],
+                      metadata: Optional[dict[str, str]] = None) -> None:
+    """The safetensors format: u64-LE header length, JSON header (padded with
+    spaces to 8 bytes), then each tensor's raw little-endian bytes."""
+    header: dict = {}
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
+    blobs = []
+    offset = 0
+    for name, t in tensors.items():
+        t = t.detach().to("cpu").contiguous()
+        blob = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {
+            "dtype": _ST_DTYPES[t.dtype],
+            "shape": list(t.shape),
+            "data_offsets": [offset, offset + len(blob)],
+        }
+        blobs.append(blob)
+        offset += len(blob)
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for blob in blobs:
+            f.write(blob)
+
+
+def read_safetensors(path: str | os.PathLike) -> tuple[dict[str, torch.Tensor], dict]:
+    """-> (tensors on the CPU, metadata)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    n = int.from_bytes(data[:8], "little")
+    header = json.loads(data[8 : 8 + n])
+    metadata = header.pop("__metadata__", {})
+    body = data[8 + n :]
+    out = {}
+    for name, info in header.items():
+        start, end = info["data_offsets"]
+        dtype = _ST_FROM_NAME[info["dtype"]]
+        buf = bytearray(body[start:end])
+        t = torch.frombuffer(buf, dtype=torch.uint8) if buf else torch.empty(0, dtype=torch.uint8)
+        out[name] = t.view(dtype).reshape(info["shape"])
+    return out, metadata
+
+
+def save_lora_weights(file: str | os.PathLike, lora: dict, spec: LoRASpec,
+                      save_dtype: torch.dtype = torch.float32,
+                      metadata: Optional[dict[str, str]] = None) -> None:
+    """AddNet `.safetensors`, or `torch.save` of the same dict for any other
+    extension (reference lora.py:224-228)."""
+    state = export_lora_state(lora, spec, save_dtype=save_dtype)
+    file = os.fspath(file)
+    if os.path.splitext(file)[1] == ".safetensors":
+        write_safetensors(file, state, metadata)
+    else:
+        torch.save(state, file)

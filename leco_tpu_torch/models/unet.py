@@ -1,0 +1,514 @@
+"""UNet2DConditionModel for SD 1.x / 2.x in PyTorch, NCHW.
+
+Counterpart of `leco_tpu/models/unet.py`, grown from the independent torch
+UNet the parity tests use (`tests/torch_unet_ref.py`): pre-norm resnets with
+the time embedding added between convs, Transformer2DModel with GN(eps 1e-6)
+and conv-or-linear projections, pre-LN transformer blocks (attn1 -> attn2 ->
+GEGLU FF), the skip stack popped in reverse, nearest-2x upsample before the
+up conv, and the [cos, sin] timestep sinusoid. Module names follow diffusers'
+state_dict naming, so LoRA export keys are a path join and
+`models/convert.py` maps the JAX parameter tree one to one.
+
+Added over the test reference: every Linear and Conv2d is a LoRA layer
+(`leco_tpu_torch.lora`); attention goes through `ops.attention` (the flash
+kernels or the plain path); and a compute dtype separate from the norms:
+GroupNorm and LayerNorm keep fp32 parameters and fp32 statistics and hand
+back the compute dtype, as the JAX package's FusedGroupNorm / LayerNorm do.
+SDXL's added text-time embedding is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Union
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from leco_tpu_torch.lora import LoRAConv2d, LoRALinear
+from leco_tpu_torch.ops.attention import multi_head_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    sample_size: int = 64
+    in_channels: int = 4
+    out_channels: int = 4
+    down_block_types: tuple = (
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "CrossAttnDownBlock2D",
+        "DownBlock2D",
+    )
+    up_block_types: tuple = (
+        "UpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+        "CrossAttnUpBlock2D",
+    )
+    block_out_channels: tuple = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    transformer_layers_per_block: Union[int, tuple] = 1
+    cross_attention_dim: int = 768
+    # diffusers-legacy semantics: this is the *head count* per block
+    attention_head_dim: Union[int, tuple] = 8
+    use_linear_projection: bool = False
+    upcast_attention: bool = False
+    addition_embed_type: Optional[str] = None
+    norm_num_groups: int = 32
+
+    def per_block(self, value) -> tuple:
+        n = len(self.block_out_channels)
+        if isinstance(value, (tuple, list)):
+            if len(value) != n:
+                raise ValueError(f"{value} has not {n} entries")
+            return tuple(value)
+        return (value,) * n
+
+    @property
+    def heads_per_block(self) -> tuple:
+        return self.per_block(self.attention_head_dim)
+
+    @property
+    def tlayers_per_block(self) -> tuple:
+        return self.per_block(self.transformer_layers_per_block)
+
+
+def sd15_config() -> UNetConfig:
+    """Stable Diffusion v1.x (SD1.4/1.5/WD1.3): 0.86B params."""
+    return UNetConfig(cross_attention_dim=768, attention_head_dim=8)
+
+
+def tiny_unet_config(cross_attention_dim: int = 32) -> UNetConfig:
+    """2-level, 8-channel UNet for CPU tests."""
+    return UNetConfig(
+        down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+        up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+        block_out_channels=(8, 16),
+        layers_per_block=1,
+        cross_attention_dim=cross_attention_dim,
+        attention_head_dim=2,
+        norm_num_groups=4,
+    )
+
+
+# ---------------------------------------------------------------------------
+# primitive layers
+# ---------------------------------------------------------------------------
+
+
+def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoid with flip_sin_to_cos=True, freq_shift=0: [cos | sin], fp32."""
+    half = dim // 2
+    exponent = -math.log(10000.0) * torch.arange(half, dtype=torch.float32,
+                                                 device=t.device) / half
+    emb = t.float()[:, None] * torch.exp(exponent)[None, :]
+    return torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm (+ optional SiLU) with fp32 parameters and statistics; the
+    output has the input's dtype."""
+
+    def __init__(self, groups: int, channels: int, eps: float, silu: bool = False):
+        super().__init__()
+        self.groups, self.eps, self.silu = groups, eps, silu
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        y = F.group_norm(x.float(), self.groups, self.weight.float(),
+                         self.bias.float(), self.eps)
+        if self.silu:
+            y = F.silu(y)
+        return y.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with fp32 parameters and statistics, output in `dtype`."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x, dtype):
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(dtype)
+
+
+class TimestepEmbedding(nn.Module):
+    def __init__(self, in_dim, embed_dim):
+        super().__init__()
+        self.linear_1 = LoRALinear(in_dim, embed_dim)
+        self.linear_2 = LoRALinear(embed_dim, embed_dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class ResnetBlock2D(nn.Module):
+    def __init__(self, in_ch, out_ch, temb_dim, groups):
+        super().__init__()
+        self.norm1 = GroupNorm(groups, in_ch, 1e-5, silu=True)
+        self.conv1 = LoRAConv2d(in_ch, out_ch, 3, padding=1)
+        self.time_emb_proj = LoRALinear(temb_dim, out_ch)
+        self.norm2 = GroupNorm(groups, out_ch, 1e-5, silu=True)
+        self.conv2 = LoRAConv2d(out_ch, out_ch, 3, padding=1)
+        self.conv_shortcut = (
+            LoRAConv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
+        )
+
+    def forward(self, x, temb):
+        temb_p = self.time_emb_proj(F.silu(temb.to(x.dtype)))
+        h = self.conv1(self.norm1(x))
+        h = h + temb_p[:, :, None, None]
+        h = self.conv2(self.norm2(h))
+        skip = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        return skip + h
+
+
+class Attention(nn.Module):
+    def __init__(self, dim, heads, ctx_dim=None, upcast=False, backend="xla"):
+        super().__init__()
+        self.heads, self.upcast, self.backend = heads, upcast, backend
+        ctx_dim = ctx_dim or dim
+        self.to_q = LoRALinear(dim, dim, bias=False)
+        self.to_k = LoRALinear(ctx_dim, dim, bias=False)
+        self.to_v = LoRALinear(ctx_dim, dim, bias=False)
+        self.to_out = nn.ModuleList([LoRALinear(dim, dim)])
+
+    def forward(self, x, ctx=None):
+        ctx = x if ctx is None else ctx
+        out = multi_head_attention(
+            self.to_q(x), self.to_k(ctx), self.to_v(ctx), num_heads=self.heads,
+            upcast=self.upcast, backend=self.backend,
+        )
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim, inner):
+        super().__init__()
+        self.proj = LoRALinear(dim, inner * 2)
+
+    def forward(self, x):
+        value, gate = self.proj(x).chunk(2, dim=-1)
+        # exact (erf) gelu in fp32, rounded to the compute dtype
+        return value * F.gelu(gate.float()).to(gate.dtype)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim):
+        super().__init__()
+        self.net = nn.ModuleList(
+            [GEGLU(dim, dim * 4), nn.Identity(), LoRALinear(dim * 4, dim)]
+        )
+
+    def forward(self, x):
+        for m in self.net:
+            x = m(x)
+        return x
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim, heads, ctx_dim, upcast, backend):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn1 = Attention(dim, heads, None, upcast, backend)
+        self.norm2 = LayerNorm(dim)
+        self.attn2 = Attention(dim, heads, ctx_dim, upcast, backend)
+        self.norm3 = LayerNorm(dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, ctx):
+        dt = x.dtype
+        x = x + self.attn1(self.norm1(x, dt))
+        x = x + self.attn2(self.norm2(x, dt), ctx)
+        return x + self.ff(self.norm3(x, dt))
+
+
+class Transformer2DModel(nn.Module):
+    def __init__(self, ch, heads, depth, ctx_dim, groups, use_linear, upcast,
+                 backend):
+        super().__init__()
+        self.use_linear = use_linear
+        self.norm = GroupNorm(groups, ch, 1e-6)
+        if use_linear:
+            self.proj_in = LoRALinear(ch, ch)
+            self.proj_out = LoRALinear(ch, ch)
+        else:
+            self.proj_in = LoRAConv2d(ch, ch, 1)
+            self.proj_out = LoRAConv2d(ch, ch, 1)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(ch, heads, ctx_dim, upcast, backend)
+             for _ in range(depth)]
+        )
+
+    def forward(self, x, ctx):
+        b, c, h, w = x.shape
+        residual = x
+        x = self.norm(x)
+        if self.use_linear:
+            x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+            x = self.proj_in(x)
+        else:
+            x = self.proj_in(x)
+            x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        for block in self.transformer_blocks:
+            x = block(x, ctx)
+        if self.use_linear:
+            x = self.proj_out(x)
+            x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        else:
+            x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
+            x = self.proj_out(x)
+        return x + residual
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, ch):
+        super().__init__()
+        self.conv = LoRAConv2d(ch, ch, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    def __init__(self, ch):
+        super().__init__()
+        self.conv = LoRAConv2d(ch, ch, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class CrossAttnDownBlock2D(nn.Module):
+    def __init__(self, in_ch, out_ch, temb_dim, layers, depth, heads, ctx_dim,
+                 groups, use_linear, upcast, backend, add_downsample):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D(in_ch if i == 0 else out_ch, out_ch, temb_dim, groups)
+             for i in range(layers)]
+        )
+        self.attentions = nn.ModuleList(
+            [Transformer2DModel(out_ch, heads, depth, ctx_dim, groups,
+                                use_linear, upcast, backend)
+             for _ in range(layers)]
+        )
+        self.downsamplers = (
+            nn.ModuleList([Downsample2D(out_ch)]) if add_downsample else None
+        )
+
+    def forward(self, x, temb, ctx):
+        outputs = []
+        for resnet, attn in zip(self.resnets, self.attentions):
+            x = attn(resnet(x, temb), ctx)
+            outputs.append(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+            outputs.append(x)
+        return x, outputs
+
+
+class DownBlock2D(nn.Module):
+    def __init__(self, in_ch, out_ch, temb_dim, layers, groups, add_downsample):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D(in_ch if i == 0 else out_ch, out_ch, temb_dim, groups)
+             for i in range(layers)]
+        )
+        self.downsamplers = (
+            nn.ModuleList([Downsample2D(out_ch)]) if add_downsample else None
+        )
+
+    def forward(self, x, temb, ctx=None):
+        outputs = []
+        for resnet in self.resnets:
+            x = resnet(x, temb)
+            outputs.append(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+            outputs.append(x)
+        return x, outputs
+
+
+class UNetMidBlock2DCrossAttn(nn.Module):
+    def __init__(self, ch, temb_dim, depth, heads, ctx_dim, groups, use_linear,
+                 upcast, backend):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D(ch, ch, temb_dim, groups),
+             ResnetBlock2D(ch, ch, temb_dim, groups)]
+        )
+        self.attentions = nn.ModuleList(
+            [Transformer2DModel(ch, heads, depth, ctx_dim, groups, use_linear,
+                                upcast, backend)]
+        )
+
+    def forward(self, x, temb, ctx):
+        x = self.resnets[0](x, temb)
+        x = self.attentions[0](x, ctx)
+        return self.resnets[1](x, temb)
+
+
+class CrossAttnUpBlock2D(nn.Module):
+    def __init__(self, in_chs, out_ch, temb_dim, depth, heads, ctx_dim, groups,
+                 use_linear, upcast, backend, add_upsample):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D(c, out_ch, temb_dim, groups) for c in in_chs]
+        )
+        self.attentions = nn.ModuleList(
+            [Transformer2DModel(out_ch, heads, depth, ctx_dim, groups,
+                                use_linear, upcast, backend) for _ in in_chs]
+        )
+        self.upsamplers = (
+            nn.ModuleList([Upsample2D(out_ch)]) if add_upsample else None
+        )
+
+    def forward(self, x, res_states, temb, ctx):
+        for resnet, attn in zip(self.resnets, self.attentions):
+            x = torch.cat([x, res_states.pop()], dim=1)
+            x = attn(resnet(x, temb), ctx)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0](x)
+        return x
+
+
+class UpBlock2D(nn.Module):
+    def __init__(self, in_chs, out_ch, temb_dim, groups, add_upsample):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D(c, out_ch, temb_dim, groups) for c in in_chs]
+        )
+        self.upsamplers = (
+            nn.ModuleList([Upsample2D(out_ch)]) if add_upsample else None
+        )
+
+    def forward(self, x, res_states, temb, ctx=None):
+        for resnet in self.resnets:
+            x = torch.cat([x, res_states.pop()], dim=1)
+            x = resnet(x, temb)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0](x)
+        return x
+
+
+# ---------------------------------------------------------------------------
+# the UNet
+# ---------------------------------------------------------------------------
+
+
+class UNet2DConditionModel(nn.Module):
+    """The SD denoising UNet: forward(sample (B, 4, H, W), timesteps (scalar
+    or (B,)), encoder_hidden_states (B, 77, ctx)) -> (B, 4, H, W) in the
+    compute dtype. Parameters are created empty; fill them with
+    `leco_tpu_torch.testing.init_unet_` or `load_state_dict`."""
+
+    def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.float32,
+                 attn_backend: str = "xla"):
+        super().__init__()
+        if cfg.addition_embed_type is not None:
+            raise NotImplementedError("SDXL added embeddings are not ported yet")
+        self.cfg = cfg
+        self.dtype = dtype
+        ch = cfg.block_out_channels
+        heads = cfg.heads_per_block
+        tlayers = cfg.tlayers_per_block
+        temb_dim = ch[0] * 4
+        n = len(ch)
+        groups = cfg.norm_num_groups
+        attn = dict(upcast=cfg.upcast_attention, backend=attn_backend)
+
+        self.conv_in = LoRAConv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.time_embedding = TimestepEmbedding(ch[0], temb_dim)
+
+        # down: track skip channels exactly as the stack accumulates
+        self.down_blocks = nn.ModuleList()
+        skip_chs = [ch[0]]
+        in_ch = ch[0]
+        for i, kind in enumerate(cfg.down_block_types):
+            is_final = i == n - 1
+            if kind == "CrossAttnDownBlock2D":
+                block = CrossAttnDownBlock2D(
+                    in_ch, ch[i], temb_dim, cfg.layers_per_block, tlayers[i],
+                    heads[i], cfg.cross_attention_dim, groups,
+                    cfg.use_linear_projection, add_downsample=not is_final, **attn,
+                )
+            elif kind == "DownBlock2D":
+                block = DownBlock2D(in_ch, ch[i], temb_dim, cfg.layers_per_block,
+                                    groups, not is_final)
+            else:
+                raise ValueError(f"unknown down block: {kind}")
+            self.down_blocks.append(block)
+            skip_chs.extend([ch[i]] * cfg.layers_per_block)
+            if not is_final:
+                skip_chs.append(ch[i])
+            in_ch = ch[i]
+
+        self.mid_block = UNetMidBlock2DCrossAttn(
+            ch[-1], temb_dim, tlayers[-1], heads[-1], cfg.cross_attention_dim,
+            groups, cfg.use_linear_projection, **attn,
+        )
+
+        # up: resnet i input = current + popped skip channels
+        self.up_blocks = nn.ModuleList()
+        rev_ch = list(reversed(ch))
+        rev_heads = list(reversed(heads))
+        rev_tlayers = list(reversed(tlayers))
+        cur = ch[-1]
+        for i, kind in enumerate(cfg.up_block_types):
+            is_final = i == n - 1
+            in_chs = []
+            for _ in range(cfg.layers_per_block + 1):
+                in_chs.append(cur + skip_chs.pop())
+                cur = rev_ch[i]
+            if kind == "CrossAttnUpBlock2D":
+                block = CrossAttnUpBlock2D(
+                    in_chs, rev_ch[i], temb_dim, rev_tlayers[i], rev_heads[i],
+                    cfg.cross_attention_dim, groups, cfg.use_linear_projection,
+                    add_upsample=not is_final, **attn,
+                )
+            elif kind == "UpBlock2D":
+                block = UpBlock2D(in_chs, rev_ch[i], temb_dim, groups, not is_final)
+            else:
+                raise ValueError(f"unknown up block: {kind}")
+            self.up_blocks.append(block)
+
+        self.conv_norm_out = GroupNorm(groups, ch[0], 1e-5, silu=True)
+        self.conv_out = LoRAConv2d(ch[0], cfg.out_channels, 3, padding=1)
+
+    def set_attention_backend(self, backend: str) -> None:
+        """Switch every attention layer between "flash" and "xla"."""
+        for mod in self.modules():
+            if isinstance(mod, Attention):
+                mod.backend = backend
+
+    def forward(self, sample, timesteps, encoder_hidden_states):
+        cfg = self.cfg
+        sample = sample.to(self.dtype)
+        ctx = encoder_hidden_states.to(self.dtype)
+        b = sample.shape[0]
+        t = torch.as_tensor(timesteps, dtype=torch.float32, device=sample.device)
+        t = torch.broadcast_to(torch.atleast_1d(t), (b,))
+        emb = self.time_embedding(
+            timestep_embedding(t, cfg.block_out_channels[0]).to(self.dtype)
+        )
+
+        sample = self.conv_in(sample)
+        stack = [sample]
+        for block in self.down_blocks:
+            sample, res = block(sample, emb, ctx)
+            stack.extend(res)
+        sample = self.mid_block(sample, emb, ctx)
+        for block in self.up_blocks:
+            n_pop = cfg.layers_per_block + 1
+            res, stack = stack[-n_pop:], stack[:-n_pop]
+            sample = block(sample, res, emb, ctx)
+        return self.conv_out(self.conv_norm_out(sample))

@@ -1,0 +1,245 @@
+"""Flash attention: the three Hopper kernels, their plain versions, and the
+autograd Function that joins them.
+
+Counterpart of `leco_tpu/ops/flash_attention.py`. The TPU kernels
+(`_attn_kernel`, `_attn_bwd_dq_kernel`, `_attn_bwd_dkv_kernel`) become CUDA
+kernels in `leco_tpu_torch/kernels/csrc/` (flash_fwd.cu, flash_bwd_dq.cu,
+flash_bwd_dkv.cu), built by `kernels/build.py` and called through ctypes.
+
+Each kernel has a wrapper and a plain PyTorch version with the same
+signature. The wrapper launches the kernel for a CUDA tensor (and raises on
+anything the kernel does not take) and runs the plain version only for a CPU
+tensor. Each wrapper counts its launches in `<wrapper>.launches`.
+
+Layouts, as in the JAX package: q3 (BH, Nq, D); k3, v3 (BH, Nk, D); the
+log-sum-exp residual lse and delta = rowsum(dO * O) are fp32 (BH, Nq).
+"""
+
+from __future__ import annotations
+
+import torch
+from einops import rearrange
+
+KERNEL_HEAD_DIMS = (40, 64, 80, 160)
+KERNEL_DTYPES = (torch.bfloat16,)
+
+
+def supports(nq: int, nk: int, dtype: torch.dtype, device: torch.device) -> bool:
+    """The dispatch rule of `ops/attention.py`. Shapes, as in the JAX
+    package: self-attention at the top UNet levels only (Nq, Nk >= 256);
+    cross-attention over 77 tokens and the 64-token mid block take the plain
+    attention. Dtype: an fp32 tensor on CUDA takes the plain attention too,
+    since the kernels are bf16; on the CPU every dtype goes through the
+    kernels' plain versions."""
+    if torch.device(device).type == "cuda" and dtype == torch.float32:
+        return False
+    return nq >= 256 and nk >= 256
+
+
+def _check_cuda(name: str, tensors: dict, shapes: dict) -> None:
+    dtype = tensors["q3"].dtype
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: dtype {dtype} is not a kernel dtype {KERNEL_DTYPES}")
+    for key, t in tensors.items():
+        want_dtype = torch.float32 if key in ("lse", "delta") else dtype
+        if not t.is_cuda or t.device != tensors["q3"].device:
+            raise ValueError(f"{name}: {key} is not on {tensors['q3'].device}")
+        if t.dtype != want_dtype:
+            raise TypeError(f"{name}: {key} has dtype {t.dtype}, want {want_dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+        if tuple(t.shape) != shapes[key]:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, want {shapes[key]}")
+    d = tensors["q3"].shape[-1]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} is not one of {KERNEL_HEAD_DIMS}")
+
+
+def _shapes(q3, k3):
+    bh, nq, d = q3.shape
+    nk = k3.shape[1]
+    return bh, nq, nk, d, {
+        "q3": (bh, nq, d), "k3": (bh, nk, d), "v3": (bh, nk, d),
+        "g": (bh, nq, d), "lse": (bh, nq), "delta": (bh, nq),
+    }
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the Pallas kernel bodies, line for line, over the whole K/V
+# ---------------------------------------------------------------------------
+
+
+def _scaled_q(q3: torch.Tensor, scale: float) -> torch.Tensor:
+    # the scale is folded into q with a rounding to q's dtype (TPU kernel :78)
+    return (q3.float() * scale).to(q3.dtype)
+
+
+def attn_fwd_plain(q3, k3, v3, scale: float):
+    """-> (o (BH, Nq, D) in q's dtype, lse (BH, Nq) fp32). `_attn_kernel`."""
+    qs = _scaled_q(q3, scale)
+    logits = torch.einsum("bqd,bkd->bqk", qs.float(), k3.float())
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bqk,bkd->bqd", p.to(v3.dtype).float(), v3.float())
+    o = (out / denom).to(q3.dtype)
+    lse = (m + torch.log(denom)).squeeze(-1)
+    return o, lse
+
+
+def attn_bwd_dq_plain(q3, k3, v3, g, lse, delta, scale: float):
+    """dQ = (P∘(dO·Vᵀ − Δ))·K·scale. `_attn_bwd_dq_kernel`."""
+    qs = _scaled_q(q3, scale)
+    logits = torch.einsum("bqd,bkd->bqk", qs.float(), k3.float())
+    p = torch.exp(logits - lse[..., None])
+    dp = torch.einsum("bqd,bkd->bqk", g.float(), v3.float())
+    ds = (p * (dp - delta[..., None])).to(k3.dtype)
+    dq = torch.einsum("bqk,bkd->bqd", ds.float(), k3.float())
+    return (dq * scale).to(q3.dtype)
+
+
+def attn_bwd_dkv_plain(q3, k3, v3, g, lse, delta, scale: float):
+    """dV = Pᵀ·dO, dK = (Pᵀ∘(V·dOᵀ − Δ))·qs. `_attn_bwd_dkv_kernel`."""
+    qs = _scaled_q(q3, scale)
+    logits_t = torch.einsum("bkd,bqd->bkq", k3.float(), qs.float())
+    p_t = torch.exp(logits_t - lse[:, None, :])
+    dv = torch.einsum("bkq,bqd->bkd", p_t.to(g.dtype).float(), g.float())
+    dp_t = torch.einsum("bkd,bqd->bkq", v3.float(), g.float())
+    ds_t = (p_t * (dp_t - delta[:, None, :])).to(qs.dtype)
+    dk = torch.einsum("bkq,bqd->bkd", ds_t.float(), qs.float())
+    return dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def attn_fwd(q3, k3, v3, scale: float):
+    """Flash forward -> (o, lse). Kernel: csrc/flash_fwd.cu."""
+    if not q3.is_cuda:
+        return attn_fwd_plain(q3, k3, v3, scale)
+    bh, nq, nk, d, shapes = _shapes(q3, k3)
+    _check_cuda("attn_fwd", {"q3": q3, "k3": k3, "v3": v3}, shapes)
+    from leco_tpu_torch.kernels.build import library
+
+    o = torch.empty_like(q3)
+    lse = torch.empty((bh, nq), dtype=torch.float32, device=q3.device)
+    err = library().leco_flash_fwd(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), bh, nq, nk, d, float(scale), _stream(q3),
+    )
+    _raise_on("attn_fwd", err)
+    attn_fwd.launches += 1
+    return o, lse
+
+
+def attn_bwd_dq(q3, k3, v3, g, lse, delta, scale: float):
+    """Flash backward dQ. Kernel: csrc/flash_bwd_dq.cu."""
+    if not q3.is_cuda:
+        return attn_bwd_dq_plain(q3, k3, v3, g, lse, delta, scale)
+    bh, nq, nk, d, shapes = _shapes(q3, k3)
+    _check_cuda(
+        "attn_bwd_dq",
+        {"q3": q3, "k3": k3, "v3": v3, "g": g, "lse": lse, "delta": delta},
+        shapes,
+    )
+    from leco_tpu_torch.kernels.build import library
+
+    dq = torch.empty_like(q3)
+    err = library().leco_flash_bwd_dq(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, nq, nk, d,
+        float(scale), _stream(q3),
+    )
+    _raise_on("attn_bwd_dq", err)
+    attn_bwd_dq.launches += 1
+    return dq
+
+
+def attn_bwd_dkv(q3, k3, v3, g, lse, delta, scale: float):
+    """Flash backward (dK, dV). Kernel: csrc/flash_bwd_dkv.cu."""
+    if not q3.is_cuda:
+        return attn_bwd_dkv_plain(q3, k3, v3, g, lse, delta, scale)
+    bh, nq, nk, d, shapes = _shapes(q3, k3)
+    _check_cuda(
+        "attn_bwd_dkv",
+        {"q3": q3, "k3": k3, "v3": v3, "g": g, "lse": lse, "delta": delta},
+        shapes,
+    )
+    from leco_tpu_torch.kernels.build import library
+
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    err = library().leco_flash_bwd_dkv(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bh, nq, nk, d, float(scale), _stream(q3),
+    )
+    _raise_on("attn_bwd_dkv", err)
+    attn_bwd_dkv.launches += 1
+    return dk, dv
+
+
+KERNEL_WRAPPERS = (attn_fwd, attn_bwd_dq, attn_bwd_dkv)
+for _w in KERNEL_WRAPPERS:
+    _w.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+class FlashAttention3D(torch.autograd.Function):
+    """(BH, Nq, D) attention whose forward and backward are the wrappers
+    above (the JAX package's `_flash_3d` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, scale: float):
+        o, lse = attn_fwd(q3, k3, v3, scale)
+        ctx.save_for_backward(q3, k3, v3, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q3, k3, v3, o, lse = ctx.saved_tensors
+        g = g.contiguous()
+        # Δ = rowsum(dO ∘ O), an fp32 reduction outside the kernels (:465-468)
+        delta = (g.float() * o.float()).sum(dim=-1)
+        dq = attn_bwd_dq(q3, k3, v3, g, lse, delta, ctx.scale)
+        dk, dv = attn_bwd_dkv(q3, k3, v3, g, lse, delta, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention_3d(q3, k3, v3, scale: float) -> torch.Tensor:
+    return FlashAttention3D.apply(q3, k3, v3, scale)
+
+
+def flash_attention(q, k, v, scale: float) -> torch.Tensor:
+    """q: (B, Nq, H, D); k, v: (B, Nk, H, D) -> (B, Nq, H, D)."""
+    b, _, h, _ = q.shape
+    q3, k3, v3 = (
+        rearrange(t, "b n h d -> (b h) n d").contiguous() for t in (q, k, v)
+    )
+    o3 = flash_attention_3d(q3, k3, v3, scale)
+    return rearrange(o3, "(b h) n d -> b n h d", b=b, h=h)

@@ -1,0 +1,122 @@
+"""Prompt schema, embedding cache and the ESD erase/enhance loss.
+
+Counterpart of `leco_tpu/prompts.py` (reference prompt_util.py in
+p1atdev/LECO). `PromptSettings` is a dataclass built by `from_dict`, with
+the same fields, defaults, fills (positive <- target, neutral <-
+unconditional) and ignored unknown keys as the JAX package's pydantic model.
+"""
+
+import dataclasses
+from pathlib import Path
+from typing import Literal, Optional
+
+import torch
+
+from leco_tpu_torch.config import _Section
+
+ACTION_TYPES = Literal["erase", "enhance"]
+
+
+@dataclasses.dataclass
+class PromptSettings(_Section):
+    """One prompt entry of the prompts YAML (prompt_util.py:43-67)."""
+
+    target: str
+    positive: Optional[str] = None  # if None, target is used
+    unconditional: str = ""
+    neutral: Optional[str] = None  # if None, unconditional is used
+    action: ACTION_TYPES = "erase"
+    guidance_scale: float = 1.0
+    resolution: int = 512
+    dynamic_resolution: bool = False
+    batch_size: int = 1
+    dynamic_crops: bool = False  # only used for SDXL
+
+    @classmethod
+    def from_dict(cls, values: dict) -> "PromptSettings":
+        if "target" not in values:
+            raise ValueError("target must be specified")
+        values = dict(values)
+        values.setdefault("positive", values["target"])
+        values.setdefault("unconditional", "")
+        values.setdefault("neutral", values["unconditional"])
+        return super().from_dict(values)
+
+
+class PromptEmbedsCache:
+    """Prompt string -> embedding, computed once before the train loop."""
+
+    def __init__(self) -> None:
+        self.prompts: dict[str, torch.Tensor] = {}
+
+    def __setitem__(self, name: str, value: torch.Tensor) -> None:
+        self.prompts[name] = value
+
+    def __getitem__(self, name: str) -> Optional[torch.Tensor]:
+        return self.prompts.get(name)
+
+
+def esd_loss(
+    target_latents: torch.Tensor,
+    positive_latents: torch.Tensor,
+    unconditional_latents: torch.Tensor,
+    neutral_latents: torch.Tensor,
+    guidance_scale: float,
+    erase_sign: float,
+) -> torch.Tensor:
+    """ESD noise-prediction MSE, in fp32 whatever the model dtype.
+    erase_sign = +1 for "erase" (neutral - g*(positive - uncond)), -1 for
+    "enhance" (prompt_util.py:107-135)."""
+    target = target_latents.float()
+    positive = positive_latents.float()
+    uncond = unconditional_latents.float()
+    neutral = neutral_latents.float()
+    goal = neutral - erase_sign * guidance_scale * (positive - uncond)
+    return torch.mean((target - goal) ** 2)
+
+
+class PromptEmbedsPair:
+    """Cached embeddings for one prompt entry + its loss settings
+    (prompt_util.py:70-148)."""
+
+    def __init__(self, target, positive, unconditional, neutral,
+                 settings: PromptSettings) -> None:
+        self.target = target
+        self.positive = positive
+        self.unconditional = unconditional
+        self.neutral = neutral
+
+        self.guidance_scale = settings.guidance_scale
+        self.resolution = settings.resolution
+        self.dynamic_resolution = settings.dynamic_resolution
+        self.batch_size = settings.batch_size
+        self.dynamic_crops = settings.dynamic_crops
+        self.action = settings.action
+        self.settings = settings
+
+    @property
+    def erase_sign(self) -> float:
+        if self.action == "erase":
+            return 1.0
+        if self.action == "enhance":
+            return -1.0
+        raise ValueError("action must be erase or enhance")
+
+    def loss(self, *, target_latents, positive_latents, unconditional_latents,
+             neutral_latents):
+        return esd_loss(
+            target_latents, positive_latents, unconditional_latents,
+            neutral_latents, guidance_scale=self.guidance_scale,
+            erase_sign=self.erase_sign,
+        )
+
+
+def load_prompts_from_yaml(path: str | Path) -> list[PromptSettings]:
+    """YAML list -> [PromptSettings] (prompt_util.py:151-160)."""
+    import yaml
+
+    with open(path, "r") as f:
+        prompts = yaml.safe_load(f)
+    if not prompts:
+        raise ValueError("prompts file is empty")
+    return [PromptSettings.from_dict(prompt) for prompt in prompts]

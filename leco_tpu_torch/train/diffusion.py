@@ -1,0 +1,86 @@
+"""Diffusion ops: latent init, embedding packing, CFG noise prediction, the
+partial-denoise sampler and resolution buckets.
+
+Counterpart of `leco_tpu/train/diffusion.py` (reference train_util.py).
+Latents are NCHW. Noise comes from an explicit `torch.Generator`; it cannot
+reproduce the JAX package's `jax.random` draws, so the train step also takes
+its latents as an argument (the parity tests feed both sides one draw). The
+JAX package's traced-bound `fori_loop` becomes a Python loop under no_grad.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from leco_tpu_torch.ops import schedulers as sched
+
+UNET_IN_CHANNELS = 4  # train_util.py:12
+VAE_SCALE_FACTOR = 8  # train_util.py:13
+
+
+def get_random_noise(generator: torch.Generator, batch_size: int, height: int,
+                     width: int, device) -> torch.Tensor:
+    """(B, 4, H/8, W/8) standard normal fp32 (train_util.py:20-32)."""
+    return torch.randn(
+        (batch_size, UNET_IN_CHANNELS, height // VAE_SCALE_FACTOR,
+         width // VAE_SCALE_FACTOR),
+        generator=generator, device=device, dtype=torch.float32,
+    )
+
+
+def get_initial_latents(generator: torch.Generator, state: sched.SchedulerState,
+                        n_imgs: int, height: int, width: int, device,
+                        n_prompts: int = 1) -> torch.Tensor:
+    """noise * init_noise_sigma, tiled over prompts (train_util.py:43-57)."""
+    noise = get_random_noise(generator, n_imgs, height, width, device)
+    return noise.repeat(n_prompts, 1, 1, 1) * state.init_noise_sigma
+
+
+def concat_embeddings(unconditional: torch.Tensor, conditional: torch.Tensor,
+                      n_imgs: int) -> torch.Tensor:
+    """cat([uncond, cond]).repeat_interleave(n_imgs, 0) (train_util.py:133-138).
+    (1, 77, d) inputs -> (2*n_imgs, 77, d)."""
+    return torch.cat([unconditional, conditional], dim=0).repeat_interleave(n_imgs, dim=0)
+
+
+def predict_noise(unet: Callable, state: sched.SchedulerState, step_index: int,
+                  latents: torch.Tensor, text_embeddings: torch.Tensor,
+                  guidance_scale: float = 7.5) -> torch.Tensor:
+    """One CFG prediction on the packed (2B, 77, d) uncond+cond batch
+    (train_util.py:142-168)."""
+    latent_in = torch.cat([latents] * 2, dim=0)
+    latent_in = sched.scale_model_input(state, latent_in, step_index)
+    t = float(state.timesteps[step_index])
+    noise_pred = unet(latent_in, t, text_embeddings)
+    uncond, text = noise_pred.chunk(2, dim=0)
+    return uncond + guidance_scale * (text - uncond)
+
+
+@torch.no_grad()
+def diffusion(unet: Callable, state: sched.SchedulerState, latents: torch.Tensor,
+              text_embeddings: torch.Tensor, total_timesteps: int,
+              guidance_scale: float = 3.0) -> torch.Tensor:
+    """Partial denoise from pure noise for `total_timesteps` steps of the
+    `state` schedule (train_util.py:171-193)."""
+    if state.kind != "ddim":
+        raise NotImplementedError(f"scheduler {state.kind} is not ported yet")
+    for i in range(total_timesteps):
+        noise_pred = predict_noise(unet, state, i, latents, text_embeddings,
+                                   guidance_scale=guidance_scale)
+        latents = sched.step_ddim(state, noise_pred, i, latents)
+    return latents
+
+
+def get_random_resolution_in_bucket(rng: np.random.Generator,
+                                    bucket_resolution: int = 512) -> tuple[int, int]:
+    """Random (h, w) multiples of 64 in [res/2, res) — the upper bound is
+    exclusive (train_util.py:404-416, SURVEY.md quirk 13)."""
+    step = 64
+    min_step = bucket_resolution // 2 // step
+    max_step = bucket_resolution // step
+    height = int(rng.integers(min_step, max_step)) * step
+    width = int(rng.integers(min_step, max_step)) * step
+    return height, width

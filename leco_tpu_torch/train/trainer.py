@@ -1,0 +1,316 @@
+"""The training engine: the ESD train step and the host-side loop.
+
+Counterpart of `leco_tpu/train/trainer.py` (reference train_lora.py:34-321).
+One iteration, as in the JAX package:
+
+    fold the LoRA into the base weights once;
+    [LoRA folded] t_to UNet forwards @ 2B CFG batch, guidance 3   (no grad)
+    [LoRA off   ] 1 UNet forward @ 3B (the three references at guidance 1,
+                  where CFG is the conditioned branch alone)       (no grad)
+    [LoRA on    ] 1 UNet forward @ B, differentiated
+    fp32 ESD loss -> backward -> AdamW step
+
+PyTorch runs eagerly, so the step is a plain function and the LoRA weights
+and optimizer state live in the model and the torch optimizer. The host loop
+draws (pair, timesteps_to, resolution) from the same seeded
+`np.random.default_rng` stream in the same order as the JAX package, so the
+same config gives the same schedule. Not ported yet (raise
+NotImplementedError, queued in ROADMAP.md): step_chunk > 1, resume,
+save_state, ema_decay > 0, wandb, tensor/spatial parallelism. Saves are
+written synchronously whatever `save.async_write` says.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from leco_tpu_torch.config import RootConfig, parse_precision
+from leco_tpu_torch.lora import (
+    LoRASpec,
+    count_lora_modules,
+    folded_lora,
+    lora_mode,
+    lora_parameters,
+    save_lora_weights,
+)
+from leco_tpu_torch.models.unet import UNet2DConditionModel
+from leco_tpu_torch.ops import schedulers as sched
+from leco_tpu_torch.prompts import (
+    PromptEmbedsCache,
+    PromptEmbedsPair,
+    PromptSettings,
+    esd_loss,
+)
+from leco_tpu_torch.train import diffusion as diff
+from leco_tpu_torch.train.optim import get_lr_schedule, get_optimizer
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    """Everything the training loop needs, already on its device."""
+
+    unet: UNet2DConditionModel  # with its LoRA layers added
+    scheduler: sched.NoiseScheduler
+    spec: LoRASpec
+    device: torch.device
+    encode_fn: Optional[Callable] = None  # str -> (1, 77, d) fp32 tensor
+
+    @property
+    def lora_params(self) -> dict[str, torch.nn.Parameter]:
+        return lora_parameters(self.unet)
+
+    def free_text_encoder(self):
+        """The reference deletes the text encoder after caching
+        (train_lora.py:134-137)."""
+        self.encode_fn = None
+
+
+def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
+                    max_denoising_steps: int, inner_guidance_scale: float = 3.0):
+    """-> step(pack, guidance_scale, erase_sign, timesteps_to, *, height,
+    width, generator=None, latents=None) -> loss (0-d fp32 tensor on the
+    device). `latents` (B, 4, H/8, W/8) replaces the draw from `generator`."""
+    unet = bundle.unet
+    scheduler = bundle.scheduler
+    state_n = scheduler.set_timesteps(max_denoising_steps)
+    state_full = scheduler.set_timesteps(scheduler.num_train_timesteps)
+    num_train_timesteps = scheduler.num_train_timesteps
+
+    def step(pack: dict, guidance_scale: float, erase_sign: float,
+             timesteps_to: int, *, height: int, width: int,
+             generator: Optional[torch.Generator] = None,
+             latents: Optional[torch.Tensor] = None) -> torch.Tensor:
+        batch = pack["target_embeds"].shape[0]
+        if latents is None:
+            latents = diff.get_initial_latents(
+                generator, state_n, batch, height, width, bundle.device
+            )
+
+        with torch.no_grad():
+            # ---- inner partial denoise, LoRA folded, guidance 3
+            # (train_lora.py:179-193)
+            with folded_lora(unet):
+                denoised = diff.diffusion(
+                    unet, state_n, latents, pack["inner_embeds"], timesteps_to,
+                    guidance_scale=inner_guidance_scale,
+                )
+
+            # ---- training timestep on the 1000-step schedule
+            # (train_lora.py:195-199)
+            idx = (timesteps_to * num_train_timesteps) // max_denoising_steps
+            t = float(state_full.timesteps[idx])
+            in_scale = float(state_full.input_scales[idx])
+
+            # ---- 3 reference predictions, LoRA off, one batched call
+            with lora_mode(unet, "off"):
+                ref_preds = unet(denoised.repeat(3, 1, 1, 1) * in_scale, t,
+                                 pack["ref_embeds"]).float()
+            positive, neutral, uncond = ref_preds.chunk(3, dim=0)
+
+        # ---- differentiated target prediction, LoRA on (train_lora.py:244-256)
+        pred = unet(denoised * in_scale, t, pack["target_embeds"])
+        loss = esd_loss(pred, positive, uncond, neutral, guidance_scale, erase_sign)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def build_pack(pair: PromptEmbedsPair) -> dict:
+    """The per-iteration embedding batches for one prompt pair: inner
+    [uncond]*b + [target]*b, references [positive]*b + [neutral]*b +
+    [uncond]*b, target [target]*b."""
+    b = pair.batch_size
+    return {
+        "inner_embeds": diff.concat_embeddings(pair.unconditional, pair.target, b),
+        "ref_embeds": torch.cat(
+            [
+                pair.positive.repeat_interleave(b, dim=0),
+                pair.neutral.repeat_interleave(b, dim=0),
+                pair.unconditional.repeat_interleave(b, dim=0),
+            ],
+            dim=0,
+        ),
+        "target_embeds": pair.target.repeat_interleave(b, dim=0),
+    }
+
+
+def encode_prompt_pairs(prompts: list[PromptSettings],
+                        encode_fn: Callable) -> list[PromptEmbedsPair]:
+    """Encode each unique prompt once (train_lora.py:106-132)."""
+    cache = PromptEmbedsCache()
+    pairs = []
+    for settings in prompts:
+        for prompt in (settings.target, settings.positive, settings.neutral,
+                       settings.unconditional):
+            if cache[prompt] is None:
+                cache[prompt] = encode_fn(prompt)
+        pairs.append(
+            PromptEmbedsPair(
+                cache[settings.target],
+                cache[settings.positive],
+                cache[settings.unconditional],
+                cache[settings.neutral],
+                settings,
+            )
+        )
+    return pairs
+
+
+def _refuse_unported(config: RootConfig) -> None:
+    t = config.train
+    unported = {
+        "train.step_chunk > 1": t.step_chunk > 1,
+        "train.resume": t.resume,
+        "train.save_state": t.save_state,
+        "train.ema_decay > 0": t.ema_decay > 0.0,
+        "train.tensor_parallel > 1": t.tensor_parallel > 1,
+        "train.spatial_parallel != 1": t.spatial_parallel != 1,
+        "logging.use_wandb": config.logging.use_wandb,
+    }
+    asked = [k for k, v in unported.items() if v]
+    if asked:
+        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+
+
+def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle,
+          on_step: Optional[Callable] = None) -> dict:
+    """The training loop (reference train(), train_lora.py:34-321).
+
+    Returns {"lora": {name: CPU tensor}, "losses": [...], "saved": [paths]}.
+    `on_step(i, loss)` is an optional observer hook."""
+    _refuse_unported(config)
+    metadata = {
+        "prompts": ",".join(json.dumps(p.to_dict()) for p in prompts),
+        "config": json.dumps(config.to_dict()),
+    }
+    save_path = Path(config.save.path)
+    if config.logging.verbose:
+        print(metadata)
+    save_dtype = parse_precision(config.save.precision)
+
+    seed = config.train.seed
+    rng = np.random.default_rng(seed)
+    generator = torch.Generator(bundle.device)
+    generator.manual_seed(seed if seed is not None else int(rng.integers(2**31)))
+
+    # ---- prompt encoding, once (train_lora.py:106-137)
+    if bundle.encode_fn is None:
+        raise ValueError("bundle.encode_fn required")
+    pairs = encode_prompt_pairs(prompts, bundle.encode_fn)
+    bundle.free_text_encoder()
+
+    lora = bundle.lora_params
+    print(f"create LoRA for U-Net: {count_lora_modules(lora)} modules.")
+    for settings in prompts:
+        print(settings)
+
+    # ---- optimizer (train_lora.py:80-95)
+    lr_at = get_lr_schedule(config.train.lr_scheduler, config.train.lr,
+                            config.train.iterations)
+    optimizer = get_optimizer(config.train.optimizer, list(lora.values()),
+                              config.train.lr, config.train.optimizer_args)
+    step_fn = make_train_step(bundle, optimizer, config.train.max_denoising_steps)
+
+    losses: list[float] = []
+    saved: list[Path] = []
+    save_path.mkdir(parents=True, exist_ok=True)
+    pack_cache: dict = {}
+    # losses stay on the device until `logging.interval` of them are
+    # pending, then come to the host in one transfer (the host syncs with
+    # the device once per interval, not once per iteration)
+    pending: list = []
+
+    try:
+        from tqdm import tqdm
+
+        pbar = tqdm(total=config.train.iterations)
+    except ImportError:
+        pbar = None
+
+    def save(p: Path) -> None:
+        print("Saving...")
+        save_lora_weights(p, lora, bundle.spec, save_dtype, metadata)
+        saved.append(p)
+
+    with open(save_path / "metrics.jsonl", "a") as metrics_file:
+
+        def drain() -> None:
+            if not pending:
+                return
+            values = torch.stack([loss for _, loss in pending]).cpu().tolist()
+            for (meta, _), loss_val in zip(pending, values):
+                j, j_tsto, j_h, j_w = meta
+                if not np.isfinite(loss_val):
+                    # stop before a save can overwrite good weights
+                    raise FloatingPointError(
+                        f"non-finite loss {loss_val} at iteration {j}; aborting "
+                        "(last good LoRA weights are in the previous periodic save)"
+                    )
+                losses.append(loss_val)
+                if pbar is not None:
+                    pbar.set_description(f"Loss*1k: {loss_val * 1000:.4f}")
+                record = {"loss": loss_val, "iteration": j, "lr": lr_at(j),
+                          "timesteps_to": j_tsto, "resolution": [j_h, j_w]}
+                metrics_file.write(json.dumps(record) + "\n")
+                metrics_file.flush()
+                if on_step is not None:
+                    on_step(j, loss_val)
+            pending.clear()
+
+        iterations = config.train.iterations
+        per_steps = config.save.per_steps
+        for i in range(iterations):
+            # sampling order of train_lora.py:141-176
+            pair = pairs[int(rng.integers(0, len(pairs)))]
+            timesteps_to = int(rng.integers(1, config.train.max_denoising_steps))
+            height, width = pair.resolution, pair.resolution
+            if pair.dynamic_resolution:
+                height, width = diff.get_random_resolution_in_bucket(
+                    rng, pair.resolution
+                )
+            if config.logging.verbose:
+                print("guidance_scale:", pair.guidance_scale)
+                print("resolution:", pair.resolution)
+                print("dynamic_resolution:", pair.dynamic_resolution)
+                if pair.dynamic_resolution:
+                    print("bucketed resolution:", (height, width))
+                print("batch_size:", pair.batch_size)
+            pack = pack_cache.get(id(pair))
+            if pack is None:
+                pack = pack_cache[id(pair)] = build_pack(pair)
+
+            loss = step_fn(pack, pair.guidance_scale, pair.erase_sign,
+                           timesteps_to, height=height, width=width,
+                           generator=generator)
+            pending.append(((i, timesteps_to, height, width), loss))
+            if len(pending) >= max(1, config.logging.interval):
+                drain()
+            if pbar is not None:
+                pbar.update(1)
+
+            # periodic save (train_lora.py:292-302); per_steps <= 0 means
+            # "final save only"
+            if (per_steps > 0 and i % per_steps == 0 and i != 0
+                    and i != iterations - 1):
+                drain()
+                save(save_path / f"{config.save.name}_{i}steps.safetensors")
+
+        drain()
+        if pbar is not None:
+            pbar.close()
+        save(save_path / f"{config.save.name}_last.safetensors")
+    print("Done.")
+    return {
+        "lora": {k: v.detach().cpu() for k, v in lora.items()},
+        "losses": losses,
+        "saved": saved,
+    }

@@ -1,0 +1,146 @@
+"""The port's config tree, prompt schema and ESD loss against the JAX
+package's, and a run of the port's main path with every package outside
+torch, numpy and einops blocked (a GPU deployment has no pydantic, yaml,
+safetensors or tqdm)."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from leco_tpu import config as jax_config
+from leco_tpu import prompts as jax_prompts
+from leco_tpu_torch import config, prompts
+
+REPO = Path(__file__).resolve().parents[1]
+EXAMPLES = REPO / "examples"
+
+
+@pytest.mark.parametrize(
+    "name", ["config.yaml", "cat_ears_config.yaml", "config_xl.yaml",
+             "unreal_config.yaml", "ti_config.yaml"]
+)
+def test_config_matches_jax_model_dump(name):
+    raw = yaml.safe_load((EXAMPLES / name).read_text())
+    want = jax_config.RootConfig(**raw)
+    for section in ("train", "save", "logging", "other"):  # as load_config_from_yaml
+        if getattr(want, section) is None:
+            setattr(want, section, getattr(jax_config, {
+                "train": "TrainConfig", "save": "SaveConfig",
+                "logging": "LoggingConfig", "other": "OtherConfig"}[section])())
+    got = config.RootConfig.from_dict(raw)
+    assert got.to_dict() == want.model_dump()
+    assert config.load_config_from_yaml(str(EXAMPLES / name)).to_dict() == want.model_dump()
+
+
+@pytest.mark.parametrize(
+    "name", ["prompts.yaml", "cat_ears_prompts.yaml", "prompts_xl.yaml",
+             "unreal_prompts.yaml"]
+)
+def test_prompts_match_jax_model_dump(name):
+    got = prompts.load_prompts_from_yaml(EXAMPLES / name)
+    want = jax_prompts.load_prompts_from_yaml(EXAMPLES / name)
+    assert [p.to_dict() for p in got] == [p.model_dump() for p in want]
+
+
+@pytest.mark.parametrize(
+    "entry",
+    [
+        {"target": "a"},  # fills: positive <- target, neutral <- unconditional
+        {"target": "a", "unconditional": "u"},
+        {"target": "a", "positive": "b", "neutral": "n", "action": "enhance",
+         "guidance_scale": "2.5", "resolution": 768, "unknown_key": 1},
+    ],
+)
+def test_prompt_fills_and_ignored_keys(entry):
+    got = prompts.PromptSettings.from_dict(entry).to_dict()
+    assert got == jax_prompts.PromptSettings(**entry).model_dump()
+
+
+def test_schema_errors():
+    with pytest.raises(ValueError):
+        prompts.PromptSettings.from_dict({"positive": "x"})  # no target
+    with pytest.raises(ValueError):
+        prompts.PromptSettings.from_dict({"target": "a", "action": "blur"})
+    with pytest.raises(ValueError):
+        config.RootConfig.from_dict({"prompts_file": "p"})  # no pretrained_model
+    with pytest.raises(ValueError):
+        config.RootConfig.from_dict({"prompts_file": "p",
+                                     "pretrained_model": {"name_or_path": "m"},
+                                     "train": {"precision": "fp64"}})
+
+
+@pytest.mark.parametrize(
+    "precision,want",
+    [("fp32", torch.float32), ("float32", torch.float32), ("fp16", torch.float16),
+     ("float16", torch.float16), ("bf16", torch.bfloat16), ("bfloat16", torch.bfloat16)],
+)
+def test_parse_precision(precision, want):
+    assert config.parse_precision(precision) is want
+    assert str(jax_config.parse_precision(precision).dtype) == str(want).split(".")[1]
+
+
+@pytest.mark.parametrize("action,sign", [("erase", 1.0), ("enhance", -1.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_esd_loss_matches_jax(action, sign, dtype):
+    rng = np.random.default_rng(0)
+    preds = [rng.standard_normal((2, 4, 8, 8)).astype(np.float32) for _ in range(4)]
+    settings = prompts.PromptSettings.from_dict({"target": "a", "action": action,
+                                                 "guidance_scale": 3.0})
+    pair = prompts.PromptEmbedsPair(None, None, None, None, settings)
+    assert pair.erase_sign == sign
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = pair.loss(
+        target_latents=torch.from_numpy(preds[0]).to(tdt),
+        positive_latents=torch.from_numpy(preds[1]).to(tdt),
+        unconditional_latents=torch.from_numpy(preds[2]).to(tdt),
+        neutral_latents=torch.from_numpy(preds[3]).to(tdt),
+    )
+    want = jax_prompts.esd_loss(*(jnp.asarray(p).astype(jdt) for p in preds), 3.0, sign)
+    assert got.dtype == torch.float32  # the loss is fp32 whatever the model dtype
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+BLOCKED = ("jax", "flax", "optax", "pydantic", "yaml", "safetensors", "tqdm", "leco_tpu")
+
+MAIN_PATH_WITHOUT_EXTRAS = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys, tempfile
+    for name in {blocked!r}:
+        sys.modules[name] = None  # any import of it raises ImportError
+    import leco_tpu_torch
+    for mod in pkgutil.walk_packages(leco_tpu_torch.__path__, "leco_tpu_torch."):
+        importlib.import_module(mod.name)
+    from leco_tpu_torch.config import RootConfig
+    from leco_tpu_torch.prompts import PromptSettings
+    from leco_tpu_torch.testing import make_random_bundle
+    from leco_tpu_torch.train.trainer import train
+    with tempfile.TemporaryDirectory() as out:
+        cfg = RootConfig.from_dict({{
+            "prompts_file": "p", "pretrained_model": {{"name_or_path": "m"}},
+            "train": {{"iterations": 1, "max_denoising_steps": 2, "seed": 0}},
+            "save": {{"name": "t", "path": out}},
+        }})
+        r = train(cfg, [PromptSettings.from_dict({{"target": "a", "resolution": 64}})],
+                  make_random_bundle(attn_backend="flash"))
+        assert len(r["losses"]) == 1 and len(r["saved"]) == 1, r
+    print("MAIN PATH OK")
+    """
+).format(blocked=BLOCKED)
+
+
+def test_main_path_runs_with_torch_numpy_einops_only():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", MAIN_PATH_WITHOUT_EXTRAS],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "MAIN PATH OK" in proc.stdout

@@ -1,0 +1,121 @@
+"""The port's flash attention against the JAX package's Pallas kernels.
+
+The JAX side runs its kernels in interpret mode on the CPU, as
+tests/test_flash_attention.py does; the port's side runs the kernels' plain
+PyTorch versions (what a wrapper takes for a CPU tensor). Inputs are made
+from a seed with numpy and rounded to bf16 identically on both sides."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from leco_tpu.ops.flash_attention import _flash_fwd_3d, flash_attention
+from leco_tpu_torch.ops import flash_attention as fa
+from leco_tpu_torch.ops.attention import _xla_attention, multi_head_attention
+
+SHAPES = [(256, 256, 2, 40), (512, 512, 4, 64), (512, 77, 2, 40)]
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+# fp32: the two sides differ by summation order only; bf16: the bound of
+# tests/test_flash_attention.py (outputs rounded to bf16)
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _inputs(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n,nk,heads,d", SHAPES)
+def test_forward_matches_jax_kernel(n, nk, heads, d, dtype):
+    jdt, tdt = DTYPES[dtype]
+    q, k, v = _inputs(0, (heads, n, d), (heads, nk, d), (heads, nk, d))
+    scale = d**-0.5
+    with pltpu.force_tpu_interpret_mode():
+        o_j, lse_j = _flash_fwd_3d(
+            *(jnp.asarray(x).astype(jdt) for x in (q, k, v)), scale
+        )
+    o_t, lse_t = fa.attn_fwd_plain(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)), scale
+    )
+    assert o_t.dtype == tdt and lse_t.dtype == torch.float32
+    np.testing.assert_allclose(
+        o_t.float().numpy(), np.asarray(o_j, np.float32), atol=ATOL[dtype]
+    )
+    # lse is fp32 on both sides, from logits of identically rounded inputs
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j)[..., 0], atol=2e-5)
+
+
+@pytest.mark.parametrize("n,nk,heads,d", [(256, 256, 2, 40), (512, 77, 2, 40)])
+def test_gradients_match_jax_pallas_backward(n, nk, heads, d, monkeypatch):
+    """The port's autograd.Function (plain dQ and dK/dV on the CPU) against
+    jax.grad through the Pallas backward kernels, fp32."""
+    monkeypatch.setenv("LECO_FLASH_BWD", "pallas")
+    q, k, v = _inputs(1, (1, n, heads, d), (1, nk, heads, d), (1, nk, heads, d))
+    scale = d**-0.5
+
+    def f_jax(q, k, v):
+        return jnp.sum(flash_attention(q, k, v, scale) ** 2)
+
+    with pltpu.force_tpu_interpret_mode():
+        g_jax = jax.grad(f_jax, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (fa.flash_attention(qt, kt, vt, scale) ** 2).sum().backward()
+    for got, want in zip((qt.grad, kt.grad, vt.grad), g_jax):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+def test_cpu_wrappers_take_plain_versions_and_count_nothing():
+    fa.reset_launch_counts()
+    q, k, v = (torch.from_numpy(x) for x in _inputs(2, *[(2, 256, 40)] * 3))
+    o, lse = fa.attn_fwd(q, k, v, 0.1)
+    o_p, lse_p = fa.attn_fwd_plain(q, k, v, 0.1)
+    assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
+    delta = (o * o).sum(-1)
+    assert torch.equal(fa.attn_bwd_dq(q, k, v, o, lse, delta, 0.1),
+                       fa.attn_bwd_dq_plain(q, k, v, o, lse, delta, 0.1))
+    for a, b in zip(fa.attn_bwd_dkv(q, k, v, o, lse, delta, 0.1),
+                    fa.attn_bwd_dkv_plain(q, k, v, o, lse, delta, 0.1)):
+        assert torch.equal(a, b)
+    assert fa.launch_counts() == {"attn_fwd": 0, "attn_bwd_dq": 0, "attn_bwd_dkv": 0}
+
+
+@pytest.mark.parametrize(
+    "nq,nk,dtype,device,want",
+    [
+        (4096, 4096, torch.bfloat16, "cuda", True),
+        (1024, 1024, torch.bfloat16, "cuda", True),
+        (256, 256, torch.bfloat16, "cuda", True),
+        (64, 64, torch.bfloat16, "cuda", False),  # mid block -> plain
+        (4096, 77, torch.bfloat16, "cuda", False),  # cross-attention -> plain
+        (4096, 4096, torch.float32, "cuda", False),  # fp32 on CUDA -> plain
+        (4096, 4096, torch.float32, "cpu", True),  # CPU: the plain versions
+    ],
+)
+def test_dispatch_rule(nq, nk, dtype, device, want):
+    assert fa.supports(nq, nk, dtype, torch.device(device)) is want
+
+
+@pytest.mark.parametrize("n,nk,routed", [(256, 256, True), (64, 64, False), (256, 77, False)])
+def test_multi_head_attention_routes_by_shape(n, nk, routed, monkeypatch):
+    calls = []
+    real = fa.flash_attention_3d
+    monkeypatch.setattr(fa, "flash_attention_3d", lambda *a: calls.append(1) or real(*a))
+    q, k, v = (torch.from_numpy(x) for x in _inputs(3, (2, n, 32), (2, nk, 32), (2, nk, 32)))
+    out = multi_head_attention(q, k, v, num_heads=2, backend="flash")
+    ref = _xla_attention(*(t.reshape(2, -1, 2, 16) for t in (q, k, v)), 16**-0.5, False)
+    assert bool(calls) is routed
+    np.testing.assert_allclose(out.numpy(), ref.reshape(2, n, 32).numpy(), atol=1e-5)
+
+
+def test_plain_attention_matches_jax_xla_attention():
+    from leco_tpu.ops.attention import _xla_attention as jax_xla_attention
+
+    q, k, v = _inputs(4, (2, 64, 2, 16), (2, 77, 2, 16), (2, 77, 2, 16))
+    want = jax_xla_attention(*map(jnp.asarray, (q, k, v)), 0.25, True)
+    got = _xla_attention(*map(torch.from_numpy, (q, k, v)), 0.25, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
