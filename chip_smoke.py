@@ -5,27 +5,40 @@
 
 Phases, each printing its result on a line of its own:
   1. device  — the card, and `nvidia-smi`'s name and power limit;
-  2. build   — nvcc builds the flash-attention kernels from
-               leco_tpu_torch/kernels/csrc (sm_90a);
-  3. kernels — each kernel against its plain PyTorch version in bf16 at the
-               training path's shapes, with times;
-  4. unet    — one full-width SD1.5 forward through the kernels against the
+  2. build   — nvcc builds every kernel from leco_tpu_torch/kernels/csrc
+               (sm_90a), one process per source;
+  3. kernels — each flash-attention kernel against its plain PyTorch version
+               in bf16 at the training path's shapes, with times;
+  4. fused_kernels — the same for the fused configuration's kernels (3x3
+               conv and its dx, GroupNorm-SiLU-conv, GroupNorm, GEGLU with
+               and without the LoRA delta) at the SD1.5 512 px shapes;
+  5. unet    — one full-width SD1.5 forward through the kernels against the
                same forward through plain attention;
-  5. profile — one train step under torch.profiler (device busy share, the
+  6. unet_fused — one full-width 512 px forward with the fused
+               configuration's knobs on against the knobs off, with the
+               per-forward launch count of every kernel;
+  7. profile — one train step under torch.profiler (device busy share, the
                kernels that take the time), and the step's time with the
-               kernels against plain attention;
-  6. train   — three iterations of `leco_tpu_torch.train.trainer.train()` on a
+               kernels against plain attention; then the same step with the
+               knobs on: its busy share, and its time against the knobs off;
+  8. train   — three iterations of `leco_tpu_torch.train.trainer.train()` on a
                random full-width SD1.5 bundle (bf16, rank-4 lierla, DDIM,
-               512 px, batch 1, the van-gogh erase prompt), with the kernels'
-               launch counts checked against the schedule.
-Then a JSON line with every kernel's launches, error and times, and as the
-last line {"ok": true, "device": {...}}. Any failure raises: the script then
-exits non-zero and prints no result. It needs CUDA and the rest of the repo.
+               512 px, batch 1, the van-gogh erase prompt), with every
+               kernel's launch count checked against the schedule: once on
+               the default path (knobs off: the flash kernels only) and once
+               with the knobs on (all seven kernels).
+The knobs are the JAX package's: LECO_CONV_BACKEND=gemm, LECO_RESNET_FUSED=1,
+LECO_TPU_FUSED_GN=1, LECO_GEGLU=fused. Then a JSON line with every kernel's
+launches, error and times, and as the last line {"ok": true, "device":
+{...}}. Any failure raises: the script then exits non-zero and prints no
+result. It needs CUDA and the rest of the repo.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -72,10 +85,117 @@ KERNELS = {
                     "leco_tpu/ops/flash_attention.py:208"),
     "attn_bwd_dkv": ("leco_tpu_torch/kernels/csrc/flash_bwd_dkv.cu",
                      "leco_tpu/ops/flash_attention.py:234"),
+    "conv3x3": ("leco_tpu_torch/kernels/csrc/conv3x3.cu",
+                "leco_tpu/ops/conv.py:66"),
+    "gnconv3x3": ("leco_tpu_torch/kernels/csrc/conv3x3.cu",
+                  "leco_tpu/ops/gn_conv.py:191"),
+    "group_norm": ("leco_tpu_torch/kernels/csrc/group_norm.cu",
+                   "leco_tpu/ops/group_norm.py:26"),
+    "geglu": ("leco_tpu_torch/kernels/csrc/geglu.cu",
+              "leco_tpu/ops/geglu.py:91"),
+}
+FLASH = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkv")
+FUSED = ("conv3x3", "gnconv3x3", "group_norm", "geglu")
+# the JAX package's fused-kernel configuration
+FUSED_KNOBS = {"LECO_CONV_BACKEND": "gemm", "LECO_RESNET_FUSED": "1",
+               "LECO_TPU_FUSED_GN": "1", "LECO_GEGLU": "fused"}
+# each fused kernel against its plain version, bf16 both: the error
+# relative to the plain output's largest magnitude (both round fp32 sums to
+# bf16 once; a bf16 ulp is 2^-8 of a value)
+RTOL_FUSED = 1e-2
+# Launches per UNet forward at SD1.5 512 px, rank-4 lierla, all knobs on:
+# 22 resnets x 2 convs (none has a LoRA branch); 16 transformer norms plus
+# conv_norm_out (the resnet norms become affines); 16 GEGLUs; the 3
+# upsampler convs (the phase-conv upsampler is not ported, so the
+# materialised 2x upsample feeds a hot 3x3 conv). The backward runs the
+# conv kernel once more per upsampler, for dx.
+FUSED_PER_FORWARD = {"gnconv3x3": 44, "group_norm": 17, "geglu": 16, "conv3x3": 3}
+CONV_DX_PER_BACKWARD = 3
+# (B, Cin, H, W, Cout): the upsampler convs at B = 2 (inner loop), the
+# level-0 one at the references' B = 3; dx runs at the target's B = 1
+CONV_SHAPES = [(2, 1280, 16, 16, 1280), (2, 1280, 32, 32, 1280), (2, 640, 64, 64, 640),
+               (3, 640, 64, 64, 640)]
+CONV_DX_SHAPES = [(1, 1280, 16, 16, 1280), (1, 1280, 32, 32, 1280), (1, 640, 64, 64, 640)]
+# every resnet conv shape of SD1.5 at 512 px, at B = 2; level 0 at B = 3, 1
+GNCONV_SHAPES = [
+    (2, 320, 64, 64, 320), (2, 960, 64, 64, 320), (2, 640, 64, 64, 320),
+    (2, 320, 32, 32, 640), (2, 640, 32, 32, 640), (2, 1920, 32, 32, 640),
+    (2, 1280, 32, 32, 640), (2, 960, 32, 32, 640), (2, 640, 16, 16, 1280),
+    (2, 1280, 16, 16, 1280), (2, 2560, 16, 16, 1280), (2, 1920, 16, 16, 1280),
+    (2, 1280, 8, 8, 1280), (2, 2560, 8, 8, 1280),
+    (3, 320, 64, 64, 320), (1, 320, 64, 64, 320),
+]
+# (B, C, H, W, eps, silu): the transformer norms and conv_norm_out
+GN_SHAPES = [
+    (2, 320, 64, 64, 1e-6, False), (2, 640, 32, 32, 1e-6, False),
+    (2, 1280, 16, 16, 1e-6, False), (2, 1280, 8, 8, 1e-6, False),
+    (2, 320, 64, 64, 1e-5, True), (3, 320, 64, 64, 1e-6, False),
+    (1, 320, 64, 64, 1e-6, False),
+]
+# (M, K, N, r): the three GEGLU levels, B·tokens rows; the LoRA delta
+# (rank 4) only in the differentiated target pass (B = 1)
+GEGLU_SHAPES = [
+    (2 * 4096, 320, 1280, 0), (2 * 1024, 640, 2560, 0), (2 * 256, 1280, 5120, 0),
+    (3 * 4096, 320, 1280, 0), (4096, 320, 1280, 4), (1024, 640, 2560, 4),
+    (256, 1280, 5120, 4), (2 * 4096, 320, 1280, 4),
+]
+# the most frequent shape on the path of each fused kernel, where it is timed
+FUSED_TIMED = {
+    "conv3x3": (2, 640, 64, 64, 640),
+    "gnconv3x3": (2, 320, 64, 64, 320),
+    "group_norm": (2, 320, 64, 64, 1e-6, False),
+    "geglu": (2 * 4096, 320, 1280, 0),
 }
 
 
+def wrappers() -> dict:
+    """Kernel name -> its wrapper, which counts its launches."""
+    from leco_tpu_torch.ops import conv, geglu, gn_conv
+    from leco_tpu_torch.ops import flash_attention as fa
+    from leco_tpu_torch.ops import group_norm as gn
+
+    return {"attn_fwd": fa.attn_fwd, "attn_bwd_dq": fa.attn_bwd_dq,
+            "attn_bwd_dkv": fa.attn_bwd_dkv, "conv3x3": conv.conv3x3_gemm,
+            "gnconv3x3": gn_conv.gnconv3x3, "group_norm": gn.group_norm_silu,
+            "geglu": geglu.geglu_gemm}
+
+
+def reset_launches() -> None:
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {name: w.launches for name, w in wrappers().items()}
+
+
+@contextlib.contextmanager
+def fused_knobs(on: bool):
+    """The fused configuration's knobs set (or unset) inside the block."""
+    saved = {k: os.environ.get(k) for k in FUSED_KNOBS}
+    for k, v in FUSED_KNOBS.items():
+        if on:
+            os.environ[k] = v
+        else:
+            os.environ.pop(k, None)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+_PHASE_START = [time.perf_counter()]
+
+
 def phase(name: str, result: dict) -> None:
+    """Print a phase's result with the seconds since the previous phase."""
+    now = time.perf_counter()
+    result = {**result, "phase_seconds": now - _PHASE_START[0]}
+    _PHASE_START[0] = now
     print(f"phase {name}: {json.dumps(result)}", flush=True)
 
 
@@ -140,7 +260,7 @@ def phase_kernels(device) -> dict:
 
     gen = torch.Generator(device)
     gen.manual_seed(0)
-    worst = {name: 0.0 for name in KERNELS}
+    worst = {name: 0.0 for name in FLASH}
     timed = {}
     for bh, nq, nk, d in KERNEL_SHAPES:
         def rand(n):
@@ -197,6 +317,82 @@ def phase_kernels(device) -> dict:
     return {"worst_abs_err": worst, "timed_shapes": TIMED_SHAPE, "timed_ms": timed}
 
 
+def phase_fused_kernels(device) -> dict:
+    """Each fused kernel against its plain version at the path's shapes, and
+    both timed at the kernel's most frequent shape."""
+    import torch
+
+    from leco_tpu_torch.ops import conv, geglu, gn_conv
+    from leco_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device)
+    gen.manual_seed(2)
+
+    def bf16(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    def fp32(shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=device) * scale + shift
+
+    worst = {name: 0.0 for name in FUSED}
+    timed = {}
+    rows = []
+
+    def held(name, shape, got, ref, kernel_fn, plain_fn):
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()), f"{name} non-finite at {shape}")
+        err = (got.float() - ref.float()).abs().max().item()
+        size = ref.float().abs().max().item()
+        check(err <= RTOL_FUSED * size,
+              f"{name} error {err} > {RTOL_FUSED} x {size} at {shape}")
+        worst[name] = max(worst[name], err)
+        row = {"kernel": name, "shape": list(shape), "max_abs_err": err, "max_abs_ref": size}
+        if FUSED_TIMED.get(name) == tuple(shape[:len(FUSED_TIMED[name])]) and name not in timed:
+            timed[name] = (time_ms(kernel_fn), time_ms(plain_fn))
+            row["ms"], row["plain_ms"] = timed[name]
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    for b, cin, h, w, cout in CONV_SHAPES + CONV_DX_SHAPES:
+        x = bf16((b, cin, h, w))
+        wt = bf16((cout, cin, 3, 3), (9 * cin) ** -0.5)
+        if (b, cin, h, w, cout) in CONV_DX_SHAPES:  # dx: the kernel on the flipped weights
+            wt, bias, tag = conv.flip_weight(wt), None, "dx"
+        else:
+            bias, tag = fp32((cout,)), "fwd"
+        held("conv3x3", (b, cin, h, w, cout, tag), conv.conv3x3_gemm(x, wt, bias),
+             conv.conv3x3_gemm_plain(x, wt, bias),
+             lambda: conv.conv3x3_gemm(x, wt, bias), lambda: conv.conv3x3_gemm_plain(x, wt, bias))
+    for b, cin, h, w, cout in GNCONV_SHAPES:
+        x = bf16((b, cin, h, w))
+        a, s = gn_conv.affine_from_gn(x, fp32((cin,), 0.1, 1.0), fp32((cin,), 0.1),
+                                      fp32((b, cin)), 32, 1e-5)
+        wt, bias = bf16((cout, cin, 3, 3), (9 * cin) ** -0.5), fp32((cout,))
+        held("gnconv3x3", (b, cin, h, w, cout), gn_conv.gnconv3x3(x, a, s, wt, bias),
+             gn_conv.gnconv3x3_plain(x, a, s, wt, bias),
+             lambda: gn_conv.gnconv3x3(x, a, s, wt, bias),
+             lambda: gn_conv.gnconv3x3_plain(x, a, s, wt, bias))
+    for b, c, h, w, eps, silu in GN_SHAPES:
+        x = bf16((b, c, h, w), 2.0)
+        scale, bias = fp32((c,), 0.1, 1.0), fp32((c,), 0.1)
+        held("group_norm", (b, c, h, w, eps, silu),
+             gn.group_norm_silu(x, scale, bias, 32, eps, silu),
+             gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu),
+             lambda: gn.group_norm_silu(x, scale, bias, 32, eps, silu),
+             lambda: gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu))
+    for m, k, n, r in GEGLU_SHAPES:
+        x, wt, bias = bf16((m, k)), bf16((2 * n, k), k**-0.5), fp32((2 * n,))
+        xd, up = (bf16((m, r)), bf16((2 * n, r), 0.1)) if r else (None, None)
+        held("geglu", (m, k, n, r), geglu.geglu_gemm(x, wt, bias, xd, up),
+             geglu.geglu_gemm_plain(x, wt, bias, xd, up),
+             lambda: geglu.geglu_gemm(x, wt, bias, xd, up),
+             lambda: geglu.geglu_gemm_plain(x, wt, bias, xd, up))
+    torch.cuda.empty_cache()
+    check(set(timed) == set(FUSED), f"timed {sorted(timed)}")
+    return {"worst_abs_err": worst, "timed_shapes": FUSED_TIMED, "timed_ms": timed,
+            "rtol": RTOL_FUSED, "shapes_checked": len(rows)}
+
+
 def phase_unet(bundle, device) -> dict:
     import torch
 
@@ -218,6 +414,34 @@ def phase_unet(bundle, device) -> dict:
     check(tuple(out.shape) == (2, 4, 32, 32), f"UNet output shape {tuple(out.shape)}")
     check(err <= RTOL_UNET * size, f"UNet flash vs plain {err} > {RTOL_UNET} x {size}")
     return {"max_abs_err": err, "max_abs_ref": size, "shape": list(out.shape)}
+
+
+def phase_unet_fused(bundle, device) -> dict:
+    """One 512 px forward at the inner loop's batch 2 with the knobs on
+    against the knobs off, with the launches of the knobs-on forward."""
+    import torch
+
+    gen = torch.Generator(device)
+    gen.manual_seed(3)
+    x = torch.randn((2, 4, 64, 64), generator=gen, device=device)
+    ctx = torch.randn((2, 77, 768), generator=gen, device=device)
+    with torch.no_grad():
+        with fused_knobs(True):
+            reset_launches()
+            out = bundle.unet(x, 501.0, ctx).float()
+            torch.cuda.synchronize()
+            counts = launches()
+        with fused_knobs(False):
+            ref = bundle.unet(x, 501.0, ctx).float()
+    err = (out - ref).abs().max().item()
+    size = ref.abs().max().item()
+    check(bool(torch.isfinite(out).all()), "non-finite UNet output with the knobs on")
+    check(tuple(out.shape) == (2, 4, 64, 64), f"UNet output shape {tuple(out.shape)}")
+    check(err <= RTOL_UNET * size, f"UNet knobs on vs off {err} > {RTOL_UNET} x {size}")
+    want = {**{k: 0 for k in FLASH}, "attn_fwd": FLASH_ATTENTIONS_PER_FORWARD,
+            **FUSED_PER_FORWARD}
+    check(counts == want, f"per-forward launches {counts} != {want}")
+    return {"max_abs_err": err, "max_abs_ref": size, "launches_per_forward": counts}
 
 
 def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
@@ -265,6 +489,23 @@ def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
         bundle.unet.set_attention_backend("flash" if backend == "flash" else "xla")
         walls[backend].append(run())
     bundle.unet.set_attention_backend("flash")
+
+    # the same step with the fused configuration's knobs on
+    with fused_knobs(True):
+        run()  # warm-up: cuDNN picks algorithms for the backward's convs
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_fused = run()
+    fused_kernels = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_fused_us = sum(e.self_device_time_total for e in fused_kernels)
+    check(busy_fused_us > 0, "the profiler saw no device time with the knobs on")
+    top_fused = sorted(fused_kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
+    leco_fused_us = sum(e.self_device_time_total for e in fused_kernels
+                        if "leco::" in e.key and "flash_" not in e.key)
+    knob_walls = {"on": [], "off": []}
+    for side in ("off", "on", "on", "off"):
+        with fused_knobs(side == "on"):
+            knob_walls[side].append(run())
     return {
         "timesteps_to": timesteps_to,
         "wall_s_under_profiler": wall,
@@ -275,15 +516,26 @@ def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
         "kernel_launches": sum(e.count for e in kernels),
         "top_kernels": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top],
         "step_s_flash_vs_plain_attention": walls,
+        "knobs_on": {
+            "wall_s_under_profiler": wall_fused,
+            "device_busy_s": busy_fused_us / 1e6,
+            "device_idle_share": 1.0 - busy_fused_us / 1e6 / min(knob_walls["on"]),
+            "fused_kernels_share_of_busy": leco_fused_us / busy_fused_us,
+            "kernel_launches": sum(e.count for e in fused_kernels),
+            "top_kernels": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
+                            for e in top_fused],
+        },
+        "step_s_knobs_on_vs_off": knob_walls,
     }
 
 
-def phase_train(bundle, out_dir: Path) -> dict:
+def phase_train(bundle, out_dir: Path, fused: bool = False) -> dict:
+    """3 iterations of train(): the default path, or with `fused` the
+    fused configuration's knobs on. Every kernel's launches are checked."""
     import torch
 
     from leco_tpu_torch.config import RootConfig
     from leco_tpu_torch.lora import count_lora_modules, read_safetensors
-    from leco_tpu_torch.ops import flash_attention as fa
     from leco_tpu_torch.prompts import PromptSettings
     from leco_tpu_torch.train.trainer import train
     from leco_tpu_torch.utils.debug import check_frozen_params, check_trainable_params
@@ -314,15 +566,20 @@ def phase_train(bundle, out_dir: Path) -> dict:
     check_frozen_params(bundle.unet)
     stamps = []
 
+    encode_fn = bundle.encode_fn  # train() frees it, as the reference does
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
-    t0 = time.perf_counter()
-    result = train(config, prompts, bundle,
-                   on_step=lambda i, loss: stamps.append(time.perf_counter()))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = fa.launch_counts()
+    with fused_knobs(fused):
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            result = train(config, prompts, bundle,
+                           on_step=lambda i, loss: stamps.append(time.perf_counter()))
+        finally:
+            bundle.encode_fn = encode_fn
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launches()
 
     losses = result["losses"]
     check(len(losses) == iterations, f"{len(losses)} losses")
@@ -330,12 +587,17 @@ def phase_train(bundle, out_dir: Path) -> dict:
     records = [json.loads(ln) for ln in (out_dir / "metrics.jsonl").read_text().splitlines()]
     check(len(records) == iterations, f"metrics.jsonl has {len(records)} lines")
     tsto = [r["timesteps_to"] for r in records]
+    forwards = sum(t + 2 for t in tsto)
     want = {
-        "attn_fwd": FLASH_ATTENTIONS_PER_FORWARD * sum(t + 2 for t in tsto),
+        "attn_fwd": FLASH_ATTENTIONS_PER_FORWARD * forwards,
         "attn_bwd_dq": FLASH_ATTENTIONS_PER_FORWARD * iterations,
         "attn_bwd_dkv": FLASH_ATTENTIONS_PER_FORWARD * iterations,
+        **{name: 0 for name in FUSED},
     }
-    check(launches == want, f"launches {launches} != {want}")
+    if fused:
+        want.update({name: n * forwards for name, n in FUSED_PER_FORWARD.items()})
+        want["conv3x3"] += CONV_DX_PER_BACKWARD * iterations
+    check(counts == want, f"launches {counts} != {want}")
 
     last = out_dir / "van_gogh_last.safetensors"
     periodic = out_dir / "van_gogh_1steps.safetensors"
@@ -354,9 +616,9 @@ def phase_train(bundle, out_dir: Path) -> dict:
     check(changed > 0, "no LoRA weight changed")
 
     per_iter = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
-    print(f"train seconds per iteration: {json.dumps(per_iter)} "
-          f"(timesteps_to {tsto})", flush=True)
-    return {"losses": losses, "timesteps_to": tsto, "launches": launches,
+    print(f"train seconds per iteration{' (knobs on)' if fused else ''}: "
+          f"{json.dumps(per_iter)} (timesteps_to {tsto})", flush=True)
+    return {"losses": losses, "timesteps_to": tsto, "launches": counts,
             "seconds": seconds, "seconds_per_iteration": per_iter,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
             "lora_layers": n_layers, "lora_tensors_changed": changed}
@@ -379,6 +641,8 @@ def main() -> None:
     phase("build", phase_build())
     kernels = phase_kernels(device)
     phase("kernels", kernels)
+    fused_kernels = phase_fused_kernels(device)
+    phase("fused_kernels", fused_kernels)
 
     t0 = time.perf_counter()
     bundle = make_sd15_bundle(dtype=torch.bfloat16, seed=0, device=device)
@@ -387,21 +651,30 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"bundle built in {time.perf_counter() - t0:.1f} s", flush=True)
     phase("unet", phase_unet(bundle, device))
+    phase("unet_fused", phase_unet_fused(bundle, device))
     phase("profile", phase_profile(bundle, device))
     with tempfile.TemporaryDirectory() as tmp:
         train_result = phase_train(bundle, Path(tmp))
     phase("train", train_result)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_fused = phase_train(bundle, Path(tmp), fused=True)
+    phase("train_fused", train_fused)
 
+    # each kernel's launches come from the run of the path it is on: the
+    # flash kernels from the default path, the fused ones from the knobs-on
+    # path (each driven with the counts at 0 just before it)
+    measured = {**{n: (kernels, train_result) for n in FLASH},
+                **{n: (fused_kernels, train_fused) for n in FUSED}}
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": train_result["launches"][name],
-            "max_abs_err": kernels["worst_abs_err"][name],
-            "ms": kernels["timed_ms"][name][0],
-            "plain_ms": kernels["timed_ms"][name][1],
+            "launches": measured[name][1]["launches"][name],
+            "max_abs_err": measured[name][0]["worst_abs_err"][name],
+            "ms": measured[name][0]["timed_ms"][name][0],
+            "plain_ms": measured[name][0]["timed_ms"][name][1],
         }
         for name, (source, replaces) in KERNELS.items()
     ]}), flush=True)

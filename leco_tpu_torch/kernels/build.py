@@ -2,10 +2,11 @@
 
 `library()` compiles every `csrc/*.cu` into one shared library with a plain C
 interface, at first use, into `kernels/_build/<hash of the sources>/`, and
-loads it. A later call in the same process, or a later process over the same
-sources, reuses the built file. Nothing here is imported or run on the CPU
-path: the wrappers in `leco_tpu_torch/ops/flash_attention.py` call
-`library()` only for CUDA tensors.
+loads it: one nvcc process per source, all started together, then one link.
+A later call in the same process, or a later process over the same sources,
+reuses the built file. Nothing here is imported or run on the CPU path: the
+kernel wrappers in `leco_tpu_torch/ops/` call `library()` only for CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -20,10 +21,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-LIB_NAME = "libleco_flash.so"
+LIB_NAME = "libleco_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -37,6 +38,14 @@ SIGNATURES = {
     "leco_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, dO, lse, delta, dk, dv, bh, nq, nk, d, scale, stream
     "leco_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, w, bias, out, batch, cin, h, w, cout, stream
+    "leco_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, a, s, w, bias, out, batch, cin, h, w, cout, silu, stream
+    "leco_gnconv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, gamma, beta, y, batch, c, h*w, groups, eps, silu, stream
+    "leco_group_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # x, w, bias, xd, up, out, m, k, n, r, stream
+    "leco_geglu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -73,17 +82,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    tag = f"{os.getpid()}.tmp"
+    objects = {src: out_dir / f"{src.stem}.{tag}.o" for src in sorted(CSRC.glob("*.cu"))}
+    cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in objects.items()]
+    # every source compiles at once; then one link
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    results = [(cmd, proc.communicate()[0], proc.returncode)
+               for cmd, proc in zip(cmds, procs)]
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    if all(rc == 0 for _, _, rc in results):
+        cmd = [nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *map(str, objects.values())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        results.append((cmd, proc.stdout + proc.stderr, proc.returncode))
+    log = "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in results)
+    (out_dir / "build.log").write_text(log)
+    for obj in objects.values():
+        obj.unlink(missing_ok=True)
+    failed = [rc for _, _, rc in results if rc != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return lib
 

@@ -15,7 +15,15 @@ stand in for the JAX package's choice of parameter tree per call:
               step under no_grad.
 
 The LoRA ride-along concat GEMM of the JAX package (`lora.py:141-152`) is
-not ported: its reason is the TPU's matrix-unit lane padding.
+not ported: its reason is the TPU's matrix-unit lane padding. The port
+computes what the JAX package computes with `LECO_LORA_FUSE=0`.
+
+The JAX package's opt-in kernel knobs reach the layers here:
+`LoRALinear.geglu` is the GEGLU projection (`LECO_GEGLU`, `ops/geglu.py`);
+`LoRAConv2d` takes a GroupNorm collapsed to an affine (`affine=(a, s)`, the
+fused resnet of `ops/gn_conv.py`) and sends hot 3x3 convs to the
+implicit-GEMM kernel under `LECO_CONV_BACKEND=gemm` (`ops/conv.py`). The
+LoRA branch is added after either kernel.
 
 Export writes the A1111-AddNet / kohya layout,
 `lora_unet_<path>.{lora_down.weight, lora_up.weight, alpha}`, to
@@ -37,6 +45,10 @@ from typing import Iterator, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from leco_tpu_torch.ops import conv as conv_ops
+from leco_tpu_torch.ops import geglu as geglu_ops
+from leco_tpu_torch.ops import gn_conv
 
 LORA_PREFIX_UNET = "lora_unet"
 MODES = ("on", "off", "folded")
@@ -168,6 +180,26 @@ class LoRALinear(_LoRALayer):
             y = y + delta * self.lora_scale
         return y
 
+    def geglu(self, x: torch.Tensor) -> torch.Tensor:
+        """This layer as the GEGLU projection (the JAX package's LoRADense
+        with geglu=True, lora.py:220-260, without the ride-along): value *
+        gelu_exact(gate) of its two output halves, the LoRA delta
+        xd = (x down^T) * scale entering before the activation. The backend
+        is `LECO_GEGLU`'s; "fused" takes the kernel where it supports x."""
+        dt = x.dtype
+        xd = up = None
+        if self._branch_on():
+            xd = F.linear(x, self.lora_down.to(dt)) * self.lora_scale
+            up = self.lora_up.to(dt)
+        backend = geglu_ops.default_geglu_backend()
+        if backend == "fused" and geglu_ops.supports(dt, x.device):
+            fn = geglu_ops.geglu_fused
+        elif backend == "split":
+            fn = geglu_ops.geglu_split
+        else:
+            fn = geglu_ops.geglu_reference
+        return fn(x, self._weight().to(dt), self.bias, xd, up)
+
 
 class LoRAConv2d(_LoRALayer):
     """nn.Conv2d (weight (out, in, kh, kw), bias) with an optional LoRA
@@ -202,10 +234,38 @@ class LoRAConv2d(_LoRALayer):
         )
         self.lora_scale = spec.stored_alpha / r  # lora.py:86-87
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _is_hot_3x3(self) -> bool:
+        """The convs the kernels take (the JAX package's
+        LoRAConv._is_hot_3x3): 3x3, stride 1, pad 1, with a bias, at least
+        `HOT_MIN_CHANNELS` in and out."""
+        return (self.kernel_size == 3 and self.stride == 1 and self.padding == 1
+                and self.bias is not None
+                and min(self.in_channels, self.out_channels) >= conv_ops.HOT_MIN_CHANNELS)
+
+    def fuses_group_norm(self, x: torch.Tensor) -> bool:
+        """May this conv take its input x through the fused GroupNorm-SiLU-
+        conv (`forward(x, affine=...)`)? Only a hot 3x3 conv with no LoRA
+        branch at all (the JAX package asks its static spec, not the call's
+        mode), at a shape `gn_conv.supports`."""
+        return (not self.has_lora and self._is_hot_3x3()
+                and gn_conv.supports(x.shape, self.out_channels, x.dtype, x.device))
+
+    def forward(self, x: torch.Tensor, affine=None) -> torch.Tensor:
+        """`affine=(a, s)`, where `fuses_group_norm(x)`: x is the
+        un-normalised input of a GroupNorm(+SiLU) collapsed to the
+        per-(batch, channel) affine (a, s), and the fused kernel applies
+        silu(a·x + s) as it runs the conv."""
         dt = x.dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        y = F.conv2d(x, self._weight().to(dt), bias, self.stride, self.padding)
+        if affine is not None:
+            a, s = affine
+            return gn_conv.affine_silu_conv(
+                x.contiguous(), a, s, self._weight().to(dt), self.bias.float())
+        if (conv_ops.default_conv_backend() == "gemm" and self._is_hot_3x3()
+                and conv_ops.supports(dt, x.device)):
+            y = conv_ops.conv3x3(x.contiguous(), self._weight().to(dt), self.bias.float())
+        else:
+            bias = None if self.bias is None else self.bias.to(dt)
+            y = F.conv2d(x, self._weight().to(dt), bias, self.stride, self.padding)
         if self._branch_on():
             h = F.conv2d(x, self.lora_down.to(dt), None, self.stride, self.padding)
             y = y + F.conv2d(h, self.lora_up.to(dt)) * self.lora_scale

@@ -11,7 +11,12 @@ state_dict naming, so LoRA export keys are a path join and
 
 Added over the test reference: every Linear and Conv2d is a LoRA layer
 (`leco_tpu_torch.lora`); attention goes through `ops.attention` (the flash
-kernels or the plain path); and a compute dtype separate from the norms:
+kernels or the plain path); the JAX package's opt-in kernel configuration
+(`LECO_CONV_BACKEND=gemm`, `LECO_RESNET_FUSED=1`, `LECO_TPU_FUSED_GN=1`,
+`LECO_GEGLU=fused`, read at call time) reaches the fused kernels of
+`ops/conv.py`, `ops/gn_conv.py`, `ops/group_norm.py` and `ops/geglu.py`; the
+GEGLU's gelu is the JAX package's polynomial-erf `gelu_exact`; and a
+compute dtype separate from the norms:
 GroupNorm and LayerNorm keep fp32 parameters and fp32 statistics and hand
 back the compute dtype, as the JAX package's FusedGroupNorm / LayerNorm do.
 SDXL's added text-time embedding is not ported yet.
@@ -28,6 +33,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from leco_tpu_torch.lora import LoRAConv2d, LoRALinear
+from leco_tpu_torch.ops import gn_conv
+from leco_tpu_torch.ops import group_norm as gn_ops
 from leco_tpu_torch.ops.attention import multi_head_attention
 
 
@@ -110,7 +117,11 @@ def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 class GroupNorm(nn.Module):
     """GroupNorm (+ optional SiLU) with fp32 parameters and statistics; the
-    output has the input's dtype."""
+    output has the input's dtype. Under `LECO_TPU_FUSED_GN=1` it runs
+    `ops.group_norm.fused_group_norm` (the kernel on bf16 CUDA tensors).
+    `affine_only=True` returns instead the per-(batch, channel) affine (a, s)
+    of GroupNorm(x + temb) for a conv that applies it with the SiLU (the JAX
+    package's FusedGroupNorm(affine_only=True), the fused resnet)."""
 
     def __init__(self, groups: int, channels: int, eps: float, silu: bool = False):
         super().__init__()
@@ -118,7 +129,15 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
+    def forward(self, x, affine_only: bool = False, temb=None):
+        if affine_only:
+            if temb is None:
+                temb = torch.zeros(x.shape[:2], dtype=torch.float32, device=x.device)
+            return gn_conv.affine_from_gn(x, self.weight, self.bias, temb,
+                                          self.groups, self.eps)
+        if gn_ops.fused_enabled() and gn_ops.supports(x.dtype, x.device):
+            return gn_ops.fused_group_norm(x, self.weight, self.bias, self.groups,
+                                           self.eps, self.silu)
         y = F.group_norm(x.float(), self.groups, self.weight.float(),
                          self.bias.float(), self.eps)
         if self.silu:
@@ -165,9 +184,18 @@ class ResnetBlock2D(nn.Module):
 
     def forward(self, x, temb):
         temb_p = self.time_emb_proj(F.silu(temb.to(x.dtype)))
-        h = self.conv1(self.norm1(x))
-        h = h + temb_p[:, :, None, None]
-        h = self.conv2(self.norm2(h))
+        fused = gn_conv.enabled()  # LECO_RESNET_FUSED, per conv (unet.py:212-242)
+        if fused and self.conv1.fuses_group_norm(x):
+            # the GroupNorm collapses to an affine the conv kernel applies
+            h = self.conv1(x, affine=self.norm1(x, affine_only=True))
+        else:
+            h = self.conv1(self.norm1(x))
+        if fused and self.conv2.fuses_group_norm(h):
+            # the temb add folds into norm2's affine analytically
+            h = self.conv2(h, affine=self.norm2(h, affine_only=True, temb=temb_p))
+        else:
+            h = h + temb_p[:, :, None, None]
+            h = self.conv2(self.norm2(h))
         skip = x if self.conv_shortcut is None else self.conv_shortcut(x)
         return skip + h
 
@@ -197,9 +225,8 @@ class GEGLU(nn.Module):
         self.proj = LoRALinear(dim, inner * 2)
 
     def forward(self, x):
-        value, gate = self.proj(x).chunk(2, dim=-1)
-        # exact (erf) gelu in fp32, rounded to the compute dtype
-        return value * F.gelu(gate.float()).to(gate.dtype)
+        # value * gelu_exact(gate), on the backend LECO_GEGLU names
+        return self.proj.geglu(x)
 
 
 class FeedForward(nn.Module):

@@ -1,1 +1,2 @@
-"""Kernels and operators: attention, flash attention, schedulers."""
+"""Kernels and operators: attention, flash attention, the fused conv,
+GroupNorm-conv, GroupNorm and GEGLU kernels, schedulers."""

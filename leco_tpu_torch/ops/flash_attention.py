@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 from einops import rearrange
 
+from leco_tpu_torch.kernels import launch
+
 KERNEL_HEAD_DIMS = (40, 64, 80, 160)
 KERNEL_DTYPES = (torch.bfloat16,)
 
@@ -62,15 +64,6 @@ def _shapes(q3, k3):
         "q3": (bh, nq, d), "k3": (bh, nk, d), "v3": (bh, nk, d),
         "g": (bh, nq, d), "lse": (bh, nq), "delta": (bh, nq),
     }
-
-
-def _raise_on(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -136,9 +129,9 @@ def attn_fwd(q3, k3, v3, scale: float):
     lse = torch.empty((bh, nq), dtype=torch.float32, device=q3.device)
     err = library().leco_flash_fwd(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), bh, nq, nk, d, float(scale), _stream(q3),
+        lse.data_ptr(), bh, nq, nk, d, float(scale), launch.stream(q3),
     )
-    _raise_on("attn_fwd", err)
+    launch.raise_on("attn_fwd", err)
     attn_fwd.launches += 1
     return o, lse
 
@@ -159,9 +152,9 @@ def attn_bwd_dq(q3, k3, v3, g, lse, delta, scale: float):
     err = library().leco_flash_bwd_dq(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, nq, nk, d,
-        float(scale), _stream(q3),
+        float(scale), launch.stream(q3),
     )
-    _raise_on("attn_bwd_dq", err)
+    launch.raise_on("attn_bwd_dq", err)
     attn_bwd_dq.launches += 1
     return dq
 
@@ -183,25 +176,23 @@ def attn_bwd_dkv(q3, k3, v3, g, lse, delta, scale: float):
     err = library().leco_flash_bwd_dkv(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bh, nq, nk, d, float(scale), _stream(q3),
+        bh, nq, nk, d, float(scale), launch.stream(q3),
     )
-    _raise_on("attn_bwd_dkv", err)
+    launch.raise_on("attn_bwd_dkv", err)
     attn_bwd_dkv.launches += 1
     return dk, dv
 
 
 KERNEL_WRAPPERS = (attn_fwd, attn_bwd_dq, attn_bwd_dkv)
-for _w in KERNEL_WRAPPERS:
-    _w.launches = 0
+launch.reset(KERNEL_WRAPPERS)
 
 
 def reset_launch_counts() -> None:
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    launch.reset(KERNEL_WRAPPERS)
 
 
 def launch_counts() -> dict[str, int]:
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    return launch.counts(KERNEL_WRAPPERS)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""The port's CUDA flash-attention kernels against their plain versions, on
-the card. Marked `cuda`: without a CUDA device every test here skips. Run
-them on a GPU machine with
+"""The port's CUDA kernels (flash attention; the fused conv, GroupNorm-conv,
+GroupNorm and GEGLU kernels) against their plain versions, on the card.
+Marked `cuda`: without a CUDA device every test here skips. Run them on a
+GPU machine with
 
     python -m pytest tests/test_torch_port_kernels_cuda.py -m cuda -q
 """
@@ -8,13 +9,19 @@ them on a GPU machine with
 import pytest
 import torch
 
+from leco_tpu_torch.ops import conv, geglu, gn_conv
 from leco_tpu_torch.ops import flash_attention as fa
+from leco_tpu_torch.ops import group_norm as gn
 
 pytestmark = pytest.mark.cuda
 
 # bf16 outputs from a reassociating online softmax: the bf16 bound of
 # tests/test_flash_attention.py; gradients relative to their own size
 ATOL_O, ATOL_LSE, RTOL_GRAD = 2e-2, 1e-3, 2e-2
+# the fused kernels against their plain versions, both bf16 out of fp32
+# sums: relative to the largest magnitude of the plain output (a bf16 ulp
+# is 2^-8 of the value)
+RTOL_FUSED = 1e-2
 
 
 @pytest.fixture
@@ -22,6 +29,7 @@ def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -76,3 +84,95 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     q = torch.zeros((2, 40, 256), device=device, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError):
         fa.attn_fwd(q, q, q, 0.1)  # not contiguous
+
+
+def _close(got, ref):
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= RTOL_FUSED * ref.float().abs().max().item(), err
+
+
+def _bf16(gen, shape, device, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,cin,h,w,cout", [(2, 640, 64, 64, 640), (1, 1280, 16, 16, 1280),
+                                            (1, 20, 5, 7, 24)])
+def test_conv3x3_and_its_dx_match_plain(device, b, cin, h, w, cout):
+    gen = torch.Generator(device).manual_seed(2)
+    x = _bf16(gen, (b, cin, h, w), device)
+    wt = _bf16(gen, (cout, cin, 3, 3), device, (9 * cin) ** -0.5)
+    bias = torch.randn((cout,), generator=gen, device=device)
+    before = conv.conv3x3_gemm.launches
+    _close(conv.conv3x3_gemm(x, wt, bias), conv.conv3x3_gemm_plain(x, wt, bias))
+    g = _bf16(gen, (b, cout, h, w), device)
+    xg = x.clone().requires_grad_()
+    conv.conv3x3(xg, wt, bias).backward(g)
+    torch.cuda.synchronize()
+    assert conv.conv3x3_gemm.launches - before == 3
+    _close(xg.grad, conv.conv3x3_gemm_plain(g, conv.flip_weight(wt)))
+
+
+@pytest.mark.parametrize("b,cin,h,w,cout", [(2, 320, 64, 64, 320), (1, 2560, 16, 16, 1280),
+                                            (3, 1920, 32, 32, 640), (1, 20, 5, 7, 24)])
+def test_gnconv3x3_matches_plain(device, b, cin, h, w, cout):
+    gen = torch.Generator(device).manual_seed(3)
+    x = _bf16(gen, (b, cin, h, w), device)
+    groups = 4 if cin % 32 else 32
+    a, s = gn_conv.affine_from_gn(x, torch.ones(cin, device=device), torch.zeros(cin, device=device),
+                                  torch.randn((b, cin), generator=gen, device=device), groups, 1e-5)
+    wt = _bf16(gen, (cout, cin, 3, 3), device, (9 * cin) ** -0.5)
+    bias = torch.randn((cout,), generator=gen, device=device)
+    before = gn_conv.gnconv3x3.launches
+    got = gn_conv.gnconv3x3(x, a, s, wt, bias)
+    torch.cuda.synchronize()
+    assert gn_conv.gnconv3x3.launches - before == 1
+    _close(got, gn_conv.gnconv3x3_plain(x, a, s, wt, bias))
+
+
+@pytest.mark.parametrize("b,c,h,w,eps,silu", [(2, 320, 64, 64, 1e-6, False),
+                                              (1, 2560, 16, 16, 1e-5, True),
+                                              (3, 1280, 8, 8, 1e-6, False),
+                                              (1, 320, 5, 7, 1e-5, True)])
+def test_group_norm_matches_plain(device, b, c, h, w, eps, silu):
+    gen = torch.Generator(device).manual_seed(4)
+    x = (torch.randn((b, c, h, w), generator=gen, device=device) * 3 + 1).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn((c,), generator=gen, device=device)
+    bias = 0.1 * torch.randn((c,), generator=gen, device=device)
+    before = gn.group_norm_silu.launches
+    got = gn.group_norm_silu(x, scale, bias, 32, eps, silu)
+    torch.cuda.synchronize()
+    assert gn.group_norm_silu.launches - before == 1
+    _close(got, gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu))
+
+
+@pytest.mark.parametrize("m,k,n,r", [(8192, 320, 1280, 4), (2048, 640, 2560, 0),
+                                     (256, 1280, 5120, 4), (100, 40, 24, 3)])
+def test_geglu_matches_plain(device, m, k, n, r):
+    gen = torch.Generator(device).manual_seed(5)
+    x = _bf16(gen, (m, k), device)
+    wt = _bf16(gen, (2 * n, k), device, k**-0.5)
+    bias = torch.randn((2 * n,), generator=gen, device=device)
+    xd = _bf16(gen, (m, r), device) if r else None
+    up = _bf16(gen, (2 * n, r), device) if r else None
+    before = geglu.geglu_gemm.launches
+    got = geglu.geglu_gemm(x, wt, bias, xd, up)
+    torch.cuda.synchronize()
+    assert geglu.geglu_gemm.launches - before == 1
+    _close(got, geglu.geglu_gemm_plain(x, wt, bias, xd, up))
+
+
+def test_fused_wrappers_refuse_what_the_kernels_do_not_take(device):
+    x = torch.zeros((1, 128, 8, 8), device=device)
+    w = torch.zeros((128, 128, 3, 3), device=device)
+    with pytest.raises(TypeError):
+        conv.conv3x3_gemm(x, w)  # fp32 is not the kernel dtype
+    with pytest.raises(ValueError):  # not contiguous
+        conv.conv3x3_gemm(x.bfloat16().transpose(2, 3), w.bfloat16())
+    with pytest.raises(TypeError):
+        gn.group_norm_silu(x, torch.ones(128, device=device), torch.zeros(128, device=device),
+                           32, 1e-5)
+    with pytest.raises(ValueError):  # K = 12 is not a multiple of 8
+        geglu.geglu_gemm(torch.zeros((4, 12), device=device, dtype=torch.bfloat16),
+                         torch.zeros((16, 12), device=device, dtype=torch.bfloat16), None)
