@@ -8,7 +8,11 @@ Phases, each printing its result on a line of its own:
   2. build   — nvcc builds every kernel from leco_tpu_torch/kernels/csrc
                (sm_90a), one process per source;
   3. kernels — each flash-attention kernel against its plain PyTorch version
-               in bf16 at the training path's shapes, with times;
+               in bf16 at the training path's shapes (SD1.5 and SD2.1), with
+               times; the packed-layout forward (LECO_FLASH_PACKED=1) at the
+               SD2.1 and SD1.5 512 px self-attention shapes and a masked
+               ragged key count, timed against its plain version and against
+               the 3-d route with its head transposes;
   4. fused_kernels — the same for the fused configuration's kernels (3x3
                conv and its dx, GroupNorm-SiLU-conv, GroupNorm, GEGLU with
                and without the LoRA delta) at the SD1.5 512 px shapes;
@@ -26,12 +30,23 @@ Phases, each printing its result on a line of its own:
                512 px, batch 1, the van-gogh erase prompt), with every
                kernel's launch count checked against the schedule: once on
                the default path (knobs off: the flash kernels only) and once
-               with the knobs on (all seven kernels).
+               with the knobs on (the seven kernels of that path);
+  9. cli     — the repo's default recipe through the port's own entry point,
+               `leco_tpu_torch.train_lora.main` (what `python -m
+               leco_tpu_torch.train_lora --config_file ...` runs): a random
+               full-width SD2.1 single-file checkpoint (fp16, LDM keys checked
+               against tests/fixtures/ldm_unet_keys_sd21.txt) with a synthetic
+               tokenizer beside it, examples/config.yaml (v2, v-prediction)
+               with iterations 3, per_steps 1 and a temp save path, and
+               examples/prompts.yaml as it is (512 px, batch 2); run with
+               LECO_FLASH_PACKED unset (the 3-d flash kernels) and set to 1
+               (the packed kernel), each with exact launch counts, finite
+               losses and saves that read back equal.
 The knobs are the JAX package's: LECO_CONV_BACKEND=gemm, LECO_RESNET_FUSED=1,
-LECO_TPU_FUSED_GN=1, LECO_GEGLU=fused. Then a JSON line with every kernel's
-launches, error and times, and as the last line {"ok": true, "device":
-{...}}. Any failure raises: the script then exits non-zero and prints no
-result. It needs CUDA and the rest of the repo.
+LECO_TPU_FUSED_GN=1, LECO_GEGLU=fused, and LECO_FLASH_PACKED=1. Then a JSON
+line with every kernel's launches, error and times, and as the last line
+{"ok": true, "device": {...}}. Any failure raises: the script then exits
+non-zero and prints no result. It needs CUDA and the rest of the repo.
 """
 
 from __future__ import annotations
@@ -51,7 +66,9 @@ REPO = Path(__file__).resolve().parent
 # (BH, Nq, Nk, D) with BH = B * 8 heads: the SD1.5 self-attention shapes at
 # 512 px (levels 0, 1, 2) at the inner loop's B = 2, the references' B = 3
 # (level 0) and the differentiated target's B = 1, the one batch whose
-# backward runs; then one SD2.1 head dim and a masked key count (Nk = 77)
+# backward runs; then a masked key count (Nk = 77); then SD2.1's (every head
+# 64 wide, heads 5 / 10 / 20) at the default recipe's batch 2: the inner
+# loop's B = 4 at levels 0-2 and the target's B = 2 at level 0
 KERNEL_SHAPES = [
     (16, 4096, 4096, 40),
     (24, 4096, 4096, 40),
@@ -62,7 +79,23 @@ KERNEL_SHAPES = [
     (8, 256, 256, 160),
     (16, 1024, 1024, 64),
     (16, 256, 77, 40),
+    (20, 4096, 4096, 64),
+    (10, 4096, 4096, 64),
+    (40, 1024, 1024, 64),
+    (80, 256, 256, 64),
 ]
+# (B, Nq, Nk, C, heads) of the packed kernel: SD2.1 at 512 px (levels 0-2,
+# heads 5 / 10 / 20, D 64) at the inner loop's B = 4 and the references'
+# B = 6, level 0 at the target's B = 2; SD1.5's level 0 (8 heads, D 40); a
+# ragged, masked key count
+PACKED_SHAPES = [
+    (4, 4096, 4096, 320, 5), (6, 4096, 4096, 320, 5), (2, 4096, 4096, 320, 5),
+    (4, 1024, 1024, 640, 10), (6, 1024, 1024, 640, 10),
+    (4, 256, 256, 1280, 20), (6, 256, 256, 1280, 20),
+    (4, 4096, 4096, 320, 8),
+    (4, 1024, 300, 640, 10),
+]
+PACKED_TIMED = (4, 4096, 4096, 320, 5)  # SD2.1 level 0, the inner loop's batch
 # the level-0 shape at which each kernel runs most on the training path
 TIMED_SHAPE = {
     "attn_fwd": (16, 4096, 4096, 40),
@@ -77,7 +110,7 @@ RTOL_GRAD = 2e-2
 # the whole UNet through the kernels vs through plain attention, bf16:
 # relative to the output's largest magnitude
 RTOL_UNET = 5e-2
-FLASH_ATTENTIONS_PER_FORWARD = 15  # SD1.5 at 512 px: 6 down + 9 up blocks
+FLASH_ATTENTIONS_PER_FORWARD = 15  # SD1.5 and SD2.1 at 512 px: 6 down + 9 up blocks
 KERNELS = {
     "attn_fwd": ("leco_tpu_torch/kernels/csrc/flash_fwd.cu",
                  "leco_tpu/ops/flash_attention.py:69"),
@@ -85,6 +118,8 @@ KERNELS = {
                     "leco_tpu/ops/flash_attention.py:208"),
     "attn_bwd_dkv": ("leco_tpu_torch/kernels/csrc/flash_bwd_dkv.cu",
                      "leco_tpu/ops/flash_attention.py:234"),
+    "attn_fwd_packed": ("leco_tpu_torch/kernels/csrc/flash_fwd.cu",
+                        "leco_tpu/ops/flash_attention.py:528"),
     "conv3x3": ("leco_tpu_torch/kernels/csrc/conv3x3.cu",
                 "leco_tpu/ops/conv.py:66"),
     "gnconv3x3": ("leco_tpu_torch/kernels/csrc/conv3x3.cu",
@@ -95,6 +130,7 @@ KERNELS = {
               "leco_tpu/ops/geglu.py:91"),
 }
 FLASH = ("attn_fwd", "attn_bwd_dq", "attn_bwd_dkv")
+PACKED = "attn_fwd_packed"
 FUSED = ("conv3x3", "gnconv3x3", "group_norm", "geglu")
 # the JAX package's fused-kernel configuration
 FUSED_KNOBS = {"LECO_CONV_BACKEND": "gemm", "LECO_RESNET_FUSED": "1",
@@ -155,7 +191,8 @@ def wrappers() -> dict:
     from leco_tpu_torch.ops import group_norm as gn
 
     return {"attn_fwd": fa.attn_fwd, "attn_bwd_dq": fa.attn_bwd_dq,
-            "attn_bwd_dkv": fa.attn_bwd_dkv, "conv3x3": conv.conv3x3_gemm,
+            "attn_bwd_dkv": fa.attn_bwd_dkv, PACKED: fa.attn_fwd_packed,
+            "conv3x3": conv.conv3x3_gemm,
             "gnconv3x3": gn_conv.gnconv3x3, "group_norm": gn.group_norm_silu,
             "geglu": geglu.geglu_gemm}
 
@@ -314,7 +351,62 @@ def phase_kernels(device) -> dict:
                           "plain_ms": {n: t[1] for n, t in ms.items()}}), flush=True)
         del q, k, v, g, o, o_ref, dq, dq_ref, dk, dk_ref, dv, dv_ref
         torch.cuda.empty_cache()
-    return {"worst_abs_err": worst, "timed_shapes": TIMED_SHAPE, "timed_ms": timed}
+    worst[PACKED], timed[PACKED], route_3d_ms = packed_kernel_checks(device, gen)
+    return {"worst_abs_err": worst, "timed_shapes": {**TIMED_SHAPE, PACKED: PACKED_TIMED},
+            "timed_ms": timed, "packed_vs_3d_route_ms": {
+                "packed_kernel": timed[PACKED][0], "3d_route": route_3d_ms,
+                "shape": PACKED_TIMED}}
+
+
+def packed_kernel_checks(device, gen):
+    """The packed forward against its plain version at PACKED_SHAPES ->
+    (worst error, (kernel ms, plain ms) at PACKED_TIMED, ms of the 3-d route
+    at PACKED_TIMED: the head transposes into (B·H, N, D), the 3-d kernel,
+    and the transpose back, as `ops/attention.py` runs it)."""
+    import torch
+    from einops import rearrange
+
+    from leco_tpu_torch.ops import flash_attention as fa
+
+    worst, timed, route_3d_ms = 0.0, None, None
+    for b, nq, nk, c, heads in PACKED_SHAPES:
+        def rand(n):
+            return torch.randn((b, n, c), generator=gen, device=device).to(torch.bfloat16)
+
+        q, k, v = rand(nq), rand(nk), rand(nk)
+        scale = (c // heads) ** -0.5
+        o = fa.attn_fwd_packed(q, k, v, heads, scale)
+        o_ref = fa.attn_fwd_packed_plain(q, k, v, heads, scale)
+        torch.cuda.synchronize()
+        shape = (b, nq, nk, c, heads)
+        check(tuple(o.shape) == (b, nq, c) and bool(torch.isfinite(o.float()).all()),
+              f"packed output {tuple(o.shape)} at {shape}")
+        err = (o.float() - o_ref.float()).abs().max().item()
+        check(err <= ATOL_O, f"packed O error {err} > {ATOL_O} at {shape}")
+        worst = max(worst, err)
+        row = {"kernel": PACKED, "shape": list(shape), "max_abs_err": err}
+        if shape == PACKED_TIMED:
+            def route_3d():
+                q3, k3, v3 = (rearrange(t, "b n (h d) -> (b h) n d", h=heads).contiguous()
+                              for t in (q, k, v))
+                o3, _ = fa.attn_fwd(q3, k3, v3, scale)
+                return rearrange(o3, "(b h) n d -> b n (h d)", h=heads).contiguous()
+
+            check(torch.equal(route_3d(), o), "the packed and 3-d kernels differ")
+            # in turns: packed, 3-d route, 3-d route, packed
+            packed_ms = [time_ms(lambda: fa.attn_fwd_packed(q, k, v, heads, scale))]
+            route_ms = [time_ms(route_3d), time_ms(route_3d)]
+            packed_ms.append(time_ms(lambda: fa.attn_fwd_packed(q, k, v, heads, scale)))
+            timed = (statistics.median(packed_ms),
+                     time_ms(lambda: fa.attn_fwd_packed_plain(q, k, v, heads, scale)))
+            route_3d_ms = statistics.median(route_ms)
+            row.update(ms=timed[0], plain_ms=timed[1], route_3d_ms=route_3d_ms,
+                       ms_turns=packed_ms, route_3d_ms_turns=route_ms)
+        print(json.dumps(row), flush=True)
+        del q, k, v, o, o_ref
+        torch.cuda.empty_cache()
+    check(timed is not None, "the packed kernel was not timed")
+    return worst, timed, route_3d_ms
 
 
 def phase_fused_kernels(device) -> dict:
@@ -439,7 +531,7 @@ def phase_unet_fused(bundle, device) -> dict:
     check(tuple(out.shape) == (2, 4, 64, 64), f"UNet output shape {tuple(out.shape)}")
     check(err <= RTOL_UNET * size, f"UNet knobs on vs off {err} > {RTOL_UNET} x {size}")
     want = {**{k: 0 for k in FLASH}, "attn_fwd": FLASH_ATTENTIONS_PER_FORWARD,
-            **FUSED_PER_FORWARD}
+            PACKED: 0, **FUSED_PER_FORWARD}
     check(counts == want, f"per-forward launches {counts} != {want}")
     return {"max_abs_err": err, "max_abs_ref": size, "launches_per_forward": counts}
 
@@ -592,6 +684,7 @@ def phase_train(bundle, out_dir: Path, fused: bool = False) -> dict:
         "attn_fwd": FLASH_ATTENTIONS_PER_FORWARD * forwards,
         "attn_bwd_dq": FLASH_ATTENTIONS_PER_FORWARD * iterations,
         "attn_bwd_dkv": FLASH_ATTENTIONS_PER_FORWARD * iterations,
+        PACKED: 0,
         **{name: 0 for name in FUSED},
     }
     if fused:
@@ -622,6 +715,155 @@ def phase_train(bundle, out_dir: Path, fused: bool = False) -> dict:
             "seconds": seconds, "seconds_per_iteration": per_iter,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
             "lora_layers": n_layers, "lora_tensors_changed": changed}
+
+
+def write_config(config: dict, path: Path) -> None:
+    """A two-level config dict as block YAML (scalars as JSON, which the
+    YAML subset reads as double-quoted strings, numbers, bools, null)."""
+    lines = []
+    for key, value in config.items():
+        if isinstance(value, dict):
+            lines.append(f"{key}:")
+            lines += [f"  {k}: {json.dumps(v)}" for k, v in value.items()]
+        else:
+            lines.append(f"{key}: {json.dumps(value)}")
+    path.write_text("\n".join(lines) + "\n")
+
+
+def safetensors_shapes(path: Path) -> dict[str, tuple]:
+    """{name: shape} from a .safetensors header, without reading the data."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+    header.pop("__metadata__", None)
+    return {k: tuple(v["shape"]) for k, v in header.items()}
+
+
+def phase_cli(device, out_dir: Path) -> dict:
+    """The default recipe (examples/config.yaml: SD2.1, v-prediction, DDIM,
+    bf16, rank-4 lierla; examples/prompts.yaml: van gogh, 512 px, batch 2)
+    through the CLI's `main()` on a random full-width SD2.1 single file,
+    once on the 3-d flash kernels and once with LECO_FLASH_PACKED=1."""
+    import torch
+
+    from leco_tpu_torch import testing
+    from leco_tpu_torch.lora import count_lora_modules, read_safetensors
+    from leco_tpu_torch.models import loader
+    from leco_tpu_torch.train_lora import main as cli_main
+    from leco_tpu_torch.train_lora import parse_args
+    from leco_tpu_torch.utils import yaml_subset
+
+    t0 = time.perf_counter()
+    ckpt = testing.write_single_file_checkpoint(
+        out_dir / "sd21" / "v2-1_random.safetensors", seed=0, dtype=torch.float16,
+        device=device)
+    write_seconds = time.perf_counter() - t0
+    shapes = safetensors_shapes(ckpt)
+    unet_keys = {k: s for k, s in shapes.items() if k.startswith("model.diffusion_model.")}
+    fixture = {}
+    for line in (REPO / "tests" / "fixtures" / "ldm_unet_keys_sd21.txt").read_text().splitlines():
+        key, shape = line.split()
+        fixture[key] = tuple(int(x) for x in shape.split(","))
+    check(unet_keys == fixture, "the written UNet's LDM keys and shapes are not SD2.1's: "
+          f"{sorted(set(unet_keys) ^ set(fixture))[:5]}")
+    check(sum(k.startswith("cond_stage_model.model.transformer.resblocks.")
+              and k.endswith(".ln_1.weight") for k in shapes) == 24, "OpenCLIP resblocks")
+    print(f"checkpoint: {ckpt.stat().st_size / 2**30:.2f} GiB, {len(shapes)} tensors, "
+          f"written in {write_seconds:.1f} s", flush=True)
+
+    config = yaml_subset.load(REPO / "examples" / "config.yaml")
+    config["prompts_file"] = str(REPO / "examples" / "prompts.yaml")
+    config["pretrained_model"]["name_or_path"] = str(ckpt)
+    config["train"]["iterations"] = 3
+    config["save"]["per_steps"] = 1
+    iterations = 3
+    runs = {}
+    for packed in (False, True):
+        name = "packed" if packed else "default"
+        save_dir = out_dir / name
+        config["save"]["path"] = str(save_dir)
+        config_path = out_dir / f"config_{name}.yaml"
+        write_config(config, config_path)
+        stamps, load_end = [], []
+        real_load = loader.load_models
+
+        def timed_load(*args, **kwargs):  # observe when loading ends
+            models = real_load(*args, **kwargs)
+            torch.cuda.synchronize()
+            load_end.append(time.perf_counter())
+            return models
+
+        saved_env = os.environ.pop("LECO_FLASH_PACKED", None)
+        if packed:
+            os.environ["LECO_FLASH_PACKED"] = "1"
+        loader.load_models = timed_load
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            result = cli_main(parse_args(["--config_file", str(config_path)]),
+                              on_step=lambda i, loss: stamps.append(time.perf_counter()))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = launches()
+        finally:
+            loader.load_models = real_load
+            os.environ.pop("LECO_FLASH_PACKED", None)
+            if saved_env is not None:
+                os.environ["LECO_FLASH_PACKED"] = saved_env
+
+        losses = result["losses"]
+        check(len(losses) == iterations, f"{name}: {len(losses)} losses")
+        check(all(torch.isfinite(torch.tensor(losses)).tolist()), f"{name}: losses {losses}")
+        records = [json.loads(ln) for ln in (save_dir / "metrics.jsonl").read_text().splitlines()]
+        check(len(records) == iterations, f"{name}: metrics.jsonl has {len(records)} lines")
+        tsto = [r["timesteps_to"] for r in records]
+        check(all(r["resolution"] == [512, 512] for r in records), f"{name}: resolution")
+        forwards = sum(t + 2 for t in tsto)
+        want = {name_: 0 for name_ in launches()}
+        if packed:
+            want[PACKED] = FLASH_ATTENTIONS_PER_FORWARD * forwards
+        else:
+            want.update({"attn_fwd": FLASH_ATTENTIONS_PER_FORWARD * forwards,
+                         "attn_bwd_dq": FLASH_ATTENTIONS_PER_FORWARD * iterations,
+                         "attn_bwd_dkv": FLASH_ATTENTIONS_PER_FORWARD * iterations})
+        check(counts == want, f"{name}: launches {counts} != {want}")
+
+        last = save_dir / "van_gogh_last.safetensors"
+        periodic = save_dir / "van_gogh_1steps.safetensors"
+        check(last.exists() and periodic.exists(), f"{name}: saves missing")
+        state, metadata = read_safetensors(last)
+        read_safetensors(periodic)
+        n_layers = count_lora_modules(result["lora"])
+        check(len(state) == 3 * n_layers, f"{name}: {len(state)} tensors, {n_layers} layers")
+        for k, v in result["lora"].items():
+            layer, part = k.rsplit(".", 1)
+            key = "lora_unet_" + layer.replace(".", "_") + f".{part}.weight"
+            check(torch.equal(state[key], v.to(torch.bfloat16)), f"{name}: saved {key} differs")
+        check('"v_pred": true' in metadata["config"], f"{name}: metadata")
+
+        per_iter = [b - a for a, b in zip(load_end + stamps[:-1], stamps)]
+        print(f"cli {name}: seconds per iteration {json.dumps(per_iter)} "
+              f"(timesteps_to {tsto}), peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        runs[name] = {
+            "losses": losses, "timesteps_to": tsto, "launches": counts,
+            "seconds": seconds, "load_seconds": load_end[0] - t0,
+            "seconds_per_iteration": per_iter,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "lora_layers": n_layers,
+        }
+        del result, state
+    # same weights, seed and schedule: the first loss (forwards only, before
+    # any update) on the packed kernel is the 3-d kernels' up to the order of
+    # cuBLAS sums elsewhere in the UNet
+    a, b = runs["default"]["losses"][0], runs["packed"]["losses"][0]
+    check(runs["default"]["timesteps_to"] == runs["packed"]["timesteps_to"], "schedules differ")
+    check(abs(a - b) <= 2e-2 * abs(a), f"first loss {a} (3-d) vs {b} (packed)")
+    return {"checkpoint_gib": ckpt.stat().st_size / 2**30, "write_seconds": write_seconds,
+            **runs}
 
 
 def main() -> None:
@@ -659,11 +901,18 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         train_fused = phase_train(bundle, Path(tmp), fused=True)
     phase("train_fused", train_fused)
+    del bundle
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = phase_cli(device, Path(tmp))
+    phase("cli", cli)
 
     # each kernel's launches come from the run of the path it is on: the
     # flash kernels from the default path, the fused ones from the knobs-on
-    # path (each driven with the counts at 0 just before it)
+    # path, the packed one from the CLI's LECO_FLASH_PACKED=1 run (each
+    # driven with the counts at 0 just before it)
     measured = {**{n: (kernels, train_result) for n in FLASH},
+                PACKED: (kernels, cli["packed"]),
                 **{n: (fused_kernels, train_fused) for n in FUSED}}
     print(json.dumps({"kernels": [
         {

@@ -7,7 +7,8 @@ targets has no pydantic, so the tree is plain dataclasses built by
 relies on it: unknown keys are ignored (docs/QUIRKS.md #5), numbers given as
 strings are coerced (YAML reads `1e-4` as a string), Literal fields are
 checked, and missing or null sections are default-constructed.
-`parse_precision` returns torch dtypes.
+`parse_precision` returns torch dtypes. YAML files are read by
+`utils/yaml_subset.py`, since the target machine has no PyYAML either.
 """
 
 import dataclasses
@@ -15,6 +16,8 @@ import typing
 from typing import Literal, Optional, Union
 
 import torch
+
+from leco_tpu_torch.utils import yaml_subset
 
 PRECISION_TYPES = Literal["fp32", "fp16", "bf16", "float32", "float16", "bfloat16"]
 NETWORK_TYPES = Literal["lierla", "c3lier"]
@@ -168,8 +171,6 @@ def parse_precision(precision: str) -> torch.dtype:
 
 
 def load_config_from_yaml(config_path: str) -> RootConfig:
-    """Load YAML and default-fill missing sections (config_util.py:86-104)."""
-    import yaml
-
-    with open(config_path, "r") as f:
-        return RootConfig.from_dict(yaml.safe_load(f))
+    """Load YAML and default-fill missing sections (config_util.py:86-104).
+    The file is read by the port's own reader (`utils/yaml_subset.py`)."""
+    return RootConfig.from_dict(yaml_subset.load(config_path))

@@ -34,6 +34,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # q, k, v, o, lse, bh, nq, nk, d, scale, stream
     "leco_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, o, b, heads, nq, nk, c, scale, stream
+    "leco_flash_fwd_packed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, dO, lse, delta, dq, bh, nq, nk, d, scale, stream
     "leco_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, dO, lse, delta, dk, dv, bh, nq, nk, d, scale, stream

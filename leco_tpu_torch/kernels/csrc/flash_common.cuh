@@ -2,7 +2,9 @@
 // memory into shared memory, and a warp-level bf16 tensor-core product.
 //
 // Layout contract (checked by the Python wrappers): q, k, v, o, dO are
-// contiguous (BH, N, D) bf16; lse and delta are contiguous (BH, Nq) fp32.
+// contiguous (BH, N, D) bf16, or for the packed forward contiguous (B, N,
+// heads * D) bf16 read one head at a time; lse and delta are contiguous
+// (BH, Nq) fp32.
 // A tile is 64 rows; its head dim D is padded to DP (a multiple of the MMA
 // depth 16) with zero columns in shared memory only, so device memory is
 // never read or written past column D and any N works.
@@ -24,19 +26,21 @@ constexpr int kWarps = 4;  // each warp owns 16 rows of the tile
 constexpr int kThreads = kWarps * 32;
 constexpr float kMaskedLogit = -1e30f;  // as the TPU kernel: no inf - inf NaN
 
-// Rows [row0, row0 + 64) of a row-major (n, D) matrix into a (64, DP) tile.
-// Rows at or past n are zero. When `scale` is given, each value is scaled in
-// fp32 and rounded back to bf16, the TPU kernel's q * scale.
+// Rows [row0, row0 + 64) of a row-major (n, D) matrix whose rows lie `ld`
+// elements apart (D for a contiguous (BH, N, D) tensor; C = heads * D for one
+// head of a packed (B, N, C) tensor) into a (64, DP) tile. Rows at or past n
+// are zero. When `scale` is given, each value is scaled in fp32 and rounded
+// back to bf16, the TPU kernel's q * scale.
 template <int D, int DP, bool SCALED>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int n, float scale) {
-  const bf16* base = src + static_cast<size_t>(row0) * D;
+                                          int n, float scale, int ld = D) {
+  const bf16* base = src + static_cast<size_t>(row0) * ld;
   for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
     bf16 x = __float2bfloat16(0.f);
     if (row0 + r < n) {
-      x = base[i];
+      x = base[static_cast<size_t>(r) * ld + c];
       if (SCALED) x = __float2bfloat16(__bfloat162float(x) * scale);
     }
     dst[r * DP + c] = x;

@@ -38,10 +38,12 @@ import contextlib
 import dataclasses
 import json
 import math
+import mmap
 import os
 import re
 from typing import Iterator, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -397,53 +399,57 @@ def export_lora_state(lora: dict, spec: LoRASpec,
     return dict(sorted(state.items()))
 
 
-_ST_DTYPES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+_ST_DTYPES = {
+    torch.float64: "F64", torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+    torch.int64: "I64", torch.int32: "I32", torch.int16: "I16", torch.int8: "I8",
+    torch.uint8: "U8", torch.bool: "BOOL",
+}
 _ST_FROM_NAME = {v: k for k, v in _ST_DTYPES.items()}
 
 
 def write_safetensors(path: str | os.PathLike, tensors: dict[str, torch.Tensor],
                       metadata: Optional[dict[str, str]] = None) -> None:
     """The safetensors format: u64-LE header length, JSON header (padded with
-    spaces to 8 bytes), then each tensor's raw little-endian bytes."""
+    spaces to 8 bytes), then each tensor's raw little-endian bytes, written
+    one tensor at a time."""
     header: dict = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
-    blobs = []
     offset = 0
     for name, t in tensors.items():
-        t = t.detach().to("cpu").contiguous()
-        blob = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        nbytes = t.numel() * t.element_size()
         header[name] = {
             "dtype": _ST_DTYPES[t.dtype],
             "shape": list(t.shape),
-            "data_offsets": [offset, offset + len(blob)],
+            "data_offsets": [offset, offset + nbytes],
         }
-        blobs.append(blob)
-        offset += len(blob)
+        offset += nbytes
     raw = json.dumps(header, separators=(",", ":")).encode()
     raw += b" " * (-len(raw) % 8)
     with open(path, "wb") as f:
         f.write(len(raw).to_bytes(8, "little"))
         f.write(raw)
-        for blob in blobs:
-            f.write(blob)
+        for t in tensors.values():
+            t = t.detach().to("cpu").contiguous()
+            f.write(t.reshape(-1).view(torch.uint8).numpy().data)
 
 
 def read_safetensors(path: str | os.PathLike) -> tuple[dict[str, torch.Tensor], dict]:
-    """-> (tensors on the CPU, metadata)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    n = int.from_bytes(data[:8], "little")
-    header = json.loads(data[8 : 8 + n])
-    metadata = header.pop("__metadata__", {})
-    body = data[8 + n :]
+    """-> (tensors on the CPU, metadata). The file is mapped once and each
+    tensor copied out of the mapping into its own buffer: one copy per
+    tensor, never the whole file twice."""
     out = {}
-    for name, info in header.items():
-        start, end = info["data_offsets"]
-        dtype = _ST_FROM_NAME[info["dtype"]]
-        buf = bytearray(body[start:end])
-        t = torch.frombuffer(buf, dtype=torch.uint8) if buf else torch.empty(0, dtype=torch.uint8)
-        out[name] = t.view(dtype).reshape(info["shape"])
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+        n = int.from_bytes(mm[:8], "little")
+        header = json.loads(mm[8 : 8 + n])
+        metadata = header.pop("__metadata__", {})
+        base = 8 + n
+        for name, info in header.items():
+            start, end = info["data_offsets"]
+            buf = torch.empty(end - start, dtype=torch.uint8)
+            if end > start:
+                buf.numpy()[:] = np.frombuffer(mm, np.uint8, end - start, base + start)
+            out[name] = buf.view(_ST_FROM_NAME[info["dtype"]]).reshape(info["shape"])
     return out, metadata
 
 

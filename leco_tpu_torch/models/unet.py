@@ -88,6 +88,19 @@ def sd15_config() -> UNetConfig:
     return UNetConfig(cross_attention_dim=768, attention_head_dim=8)
 
 
+def sd21_config() -> UNetConfig:
+    """Stable Diffusion v2.x (768-v, base): 1024-d OpenCLIP context, heads
+    (5, 10, 20, 20) so every head is 64 wide, linear projections, and the
+    fp32 softmax upcast, which applies on the plain attention path only (the
+    flash kernels keep their own fp32 softmax)."""
+    return UNetConfig(
+        cross_attention_dim=1024,
+        attention_head_dim=(5, 10, 20, 20),
+        use_linear_projection=True,
+        upcast_attention=True,
+    )
+
+
 def tiny_unet_config(cross_attention_dim: int = 32) -> UNetConfig:
     """2-level, 8-channel UNet for CPU tests."""
     return UNetConfig(

@@ -7,7 +7,12 @@ Counterpart of `leco_tpu/ops/attention.py`:
     softmax upcast (SD2.1's `upcast_attention`).
   * backend="flash": the flash-attention kernels of
     `leco_tpu_torch.ops.flash_attention` for the shapes `supports()` admits;
-    every other shape takes the plain attention.
+    every other shape takes the plain attention. Under `LECO_FLASH_PACKED=1`
+    (read at call time) the shapes `supports_packed()` admits take the
+    packed-layout kernel instead, with no head transposes.
+
+The fp32 softmax upcast (`upcast`) applies on the plain path only; the
+kernels keep their own fp32 softmax, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -43,14 +48,22 @@ def multi_head_attention(
     q: (B, Nq, C); k, v: (B, Nk, C) with C = num_heads * head_dim.
     Returns (B, Nq, C). The rule, as in the JAX package: with
     backend="flash", self-attention with Nq, Nk >= 256 goes to the kernels
-    (fp32 on CUDA excepted, see `flash_attention.supports`); cross-attention
-    over the 77 text tokens and the 64-token mid block take the plain path.
+    (fp32 on CUDA excepted, see `flash_attention.supports`), to the packed
+    one under `LECO_FLASH_PACKED=1` where `supports_packed` admits the
+    shape; cross-attention over the 77 text tokens and the 64-token mid
+    block take the plain path.
     """
     head_dim = q.shape[-1] // num_heads
     scale = head_dim**-0.5
     if backend not in ("xla", "flash"):
         raise ValueError(f"unknown attention backend: {backend}")
 
+    if (backend == "flash" and fa.packed_enabled()
+            and fa.supports(q.shape[1], k.shape[1], q.dtype, q.device)
+            and fa.supports_packed(q.shape[1], k.shape[1], q.shape[-1], num_heads,
+                                   q.dtype.itemsize)):
+        return fa.flash_attention_packed(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         num_heads, scale)
     if backend == "flash" and fa.supports(q.shape[1], k.shape[1], q.dtype, q.device):
         q3, k3, v3 = (
             rearrange(t, "b n (h d) -> (b h) n d", h=num_heads).contiguous()

@@ -1,10 +1,11 @@
-"""Flash attention: the three Hopper kernels, their plain versions, and the
-autograd Function that joins them.
+"""Flash attention: the four Hopper kernels, their plain versions, and the
+autograd Functions that join them.
 
 Counterpart of `leco_tpu/ops/flash_attention.py`. The TPU kernels
-(`_attn_kernel`, `_attn_bwd_dq_kernel`, `_attn_bwd_dkv_kernel`) become CUDA
-kernels in `leco_tpu_torch/kernels/csrc/` (flash_fwd.cu, flash_bwd_dq.cu,
-flash_bwd_dkv.cu), built by `kernels/build.py` and called through ctypes.
+(`_attn_kernel`, `_attn_bwd_dq_kernel`, `_attn_bwd_dkv_kernel`,
+`_attn_kernel_packed`) become CUDA kernels in `leco_tpu_torch/kernels/csrc/`
+(flash_fwd.cu with two entry points, flash_bwd_dq.cu, flash_bwd_dkv.cu),
+built by `kernels/build.py` and called through ctypes.
 
 Each kernel has a wrapper and a plain PyTorch version with the same
 signature. The wrapper launches the kernel for a CUDA tensor (and raises on
@@ -12,12 +13,18 @@ anything the kernel does not take) and runs the plain version only for a CPU
 tensor. Each wrapper counts its launches in `<wrapper>.launches`.
 
 Layouts, as in the JAX package: q3 (BH, Nq, D); k3, v3 (BH, Nk, D); the
-log-sum-exp residual lse and delta = rowsum(dO * O) are fp32 (BH, Nq).
+log-sum-exp residual lse and delta = rowsum(dO * O) are fp32 (BH, Nq). The
+packed route (`LECO_FLASH_PACKED=1`) keeps the model's layout: q2 (B, Nq, C),
+k2, v2 (B, Nk, C) with C = heads * D, and no lse; its backward is plain fp32
+PyTorch, as the JAX package's is XLA einsum.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.nn.functional as F
 from einops import rearrange
 
 from leco_tpu_torch.kernels import launch
@@ -36,6 +43,46 @@ def supports(nq: int, nk: int, dtype: torch.dtype, device: torch.device) -> bool
     if torch.device(device).type == "cuda" and dtype == torch.float32:
         return False
     return nq >= 256 and nk >= 256
+
+
+# the JAX package's packed-kernel sizing (flash_attention.py:559-574): the
+# q-block it would pick under its 12 MB VMEM budget decides which shapes the
+# packed route takes, so LECO_FLASH_PACKED=1 sends the layers JAX sends
+_MAX_BQ = 512
+_VMEM_BUDGET = 12 * 1024 * 1024
+PACKED_KV_ALIGN = 128
+
+
+def _packed_vmem_bytes(bq: int, nk_pad: int, c: int, itemsize: int) -> int:
+    qo = 2 * 2 * bq * c * itemsize  # double-buffered q + o blocks
+    kv = 2 * 2 * nk_pad * c * itemsize  # double-buffered full K + V
+    logits = 2 * bq * nk_pad * 4  # fp32 logits + exp
+    probs = bq * nk_pad * itemsize
+    return qo + kv + logits + probs
+
+
+def _pick_q_block_packed(nq: int, nk_pad: int, c: int, itemsize: int) -> int:
+    for bq in (512, 256, 128, 64, 32, 16, 8):
+        if bq > _MAX_BQ or nq % bq != 0:
+            continue
+        if _packed_vmem_bytes(bq, nk_pad, c, itemsize) > _VMEM_BUDGET:
+            continue
+        return bq
+    return 0
+
+
+def supports_packed(nq: int, nk: int, c: int, heads: int, itemsize: int = 2) -> bool:
+    """The JAX package's `supports_packed` (:650-656): self-attention with
+    Nq, Nk >= 256 whose q-block fits its VMEM arithmetic."""
+    if c % heads != 0:
+        return False
+    nk_pad = -(-nk // PACKED_KV_ALIGN) * PACKED_KV_ALIGN
+    return nq >= 256 and nk >= 256 and _pick_q_block_packed(nq, nk_pad, c, itemsize) > 0
+
+
+def packed_enabled() -> bool:
+    """`LECO_FLASH_PACKED=1`, read at call time (the JAX package's knob)."""
+    return os.environ.get("LECO_FLASH_PACKED") == "1"
 
 
 def _check_cuda(name: str, tensors: dict, shapes: dict) -> None:
@@ -87,6 +134,56 @@ def attn_fwd_plain(q3, k3, v3, scale: float):
     o = (out / denom).to(q3.dtype)
     lse = (m + torch.log(denom)).squeeze(-1)
     return o, lse
+
+
+def attn_fwd_packed_plain(q2, k2, v2, heads: int, scale: float):
+    """-> o (B, Nq, C) in q's dtype. `_attn_kernel_packed` (:528-556): per
+    head, the scale folded into the rounded (rows, D) q slice; K/V padded to
+    a multiple of 128 and the padding masked at -1e30; P rounded to V's
+    dtype before P·V; the output times 1/denom; no lse."""
+    b, nq, c = q2.shape
+    nk = k2.shape[1]
+    d = c // heads
+    nk_pad = -(-nk // PACKED_KV_ALIGN) * PACKED_KV_ALIGN
+    k2 = F.pad(k2, (0, 0, 0, nk_pad - nk))
+    v2 = F.pad(v2, (0, 0, 0, nk_pad - nk))
+    masked = torch.arange(nk_pad, device=q2.device) >= nk
+    outs = []
+    for h in range(heads):
+        sl = slice(h * d, (h + 1) * d)
+        qh = _scaled_q(q2[..., sl], scale)
+        logits = torch.einsum("bqd,bkd->bqk", qh.float(), k2[..., sl].float())
+        logits = logits.masked_fill(masked, -1e30)
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m)
+        denom = p.sum(dim=-1, keepdim=True)
+        oh = torch.einsum("bqk,bkd->bqd", p.to(v2.dtype).float(), v2[..., sl].float())
+        outs.append(oh * (1.0 / denom))
+    return torch.cat(outs, dim=-1).to(q2.dtype)
+
+
+def attn_bwd_packed_plain(q2, k2, v2, g, heads: int, scale: float):
+    """(dq, dk, dv) of packed attention in fp32, the JAX package's
+    `_packed_bwd` (:622-644), which is XLA einsum there, not a kernel. It
+    holds several (B, heads, Nq, Nk) fp32 tensors at once."""
+    b, nq, c = q2.shape
+    d = c // heads
+
+    def split(x):
+        return x.reshape(b, x.shape[1], heads, d).float()
+
+    q, k, v, g4 = split(q2), split(k2), split(v2), split(g)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.softmax(logits, dim=-1)
+    del logits
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, g4)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g4, v)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    del p, dp
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    return (dq.reshape(b, nq, c).to(q2.dtype), dk.reshape(k2.shape).to(k2.dtype),
+            dv.reshape(v2.shape).to(v2.dtype))
 
 
 def attn_bwd_dq_plain(q3, k3, v3, g, lse, delta, scale: float):
@@ -183,7 +280,34 @@ def attn_bwd_dkv(q3, k3, v3, g, lse, delta, scale: float):
     return dk, dv
 
 
-KERNEL_WRAPPERS = (attn_fwd, attn_bwd_dq, attn_bwd_dkv)
+def attn_fwd_packed(q2, k2, v2, heads: int, scale: float):
+    """Packed flash forward -> o (B, Nq, C). Kernel: csrc/flash_fwd.cu,
+    entry point `leco_flash_fwd_packed`."""
+    if not q2.is_cuda:
+        return attn_fwd_packed_plain(q2, k2, v2, heads, scale)
+    b, nq, c = q2.shape
+    nk = k2.shape[1]
+    if q2.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"attn_fwd_packed: dtype {q2.dtype} is not a kernel dtype {KERNEL_DTYPES}")
+    if c % heads or c // heads not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"attn_fwd_packed: C {c} over {heads} heads is not a head dim "
+                         f"of {KERNEL_HEAD_DIMS}")
+    for key, t, shape in (("q2", q2, (b, nq, c)), ("k2", k2, (b, nk, c)),
+                          ("v2", v2, (b, nk, c))):
+        launch.check("attn_fwd_packed", key, t, q2.dtype, shape, q2.device)
+    from leco_tpu_torch.kernels.build import library
+
+    o = torch.empty_like(q2)
+    err = library().leco_flash_fwd_packed(
+        q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), o.data_ptr(),
+        b, heads, nq, nk, c, float(scale), launch.stream(q2),
+    )
+    launch.raise_on("attn_fwd_packed", err)
+    attn_fwd_packed.launches += 1
+    return o
+
+
+KERNEL_WRAPPERS = (attn_fwd, attn_bwd_dq, attn_bwd_dkv, attn_fwd_packed)
 launch.reset(KERNEL_WRAPPERS)
 
 
@@ -234,3 +358,25 @@ def flash_attention(q, k, v, scale: float) -> torch.Tensor:
     )
     o3 = flash_attention_3d(q3, k3, v3, scale)
     return rearrange(o3, "(b h) n d -> b n h d", b=b, h=h)
+
+
+class FlashAttentionPacked(torch.autograd.Function):
+    """(B, N, C) attention: the packed forward wrapper and the plain fp32
+    backward (the JAX package's `flash_attention_packed` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q2, k2, v2, heads: int, scale: float):
+        ctx.save_for_backward(q2, k2, v2)
+        ctx.heads, ctx.scale = heads, scale
+        return attn_fwd_packed(q2, k2, v2, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q2, k2, v2 = ctx.saved_tensors
+        dq, dk, dv = attn_bwd_packed_plain(q2, k2, v2, g, ctx.heads, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_packed(q2, k2, v2, heads: int, scale: float) -> torch.Tensor:
+    """q2: (B, Nq, heads*D); k2, v2: (B, Nk, heads*D) -> (B, Nq, heads*D)."""
+    return FlashAttentionPacked.apply(q2, k2, v2, heads, scale)

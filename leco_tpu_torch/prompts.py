@@ -13,6 +13,7 @@ from typing import Literal, Optional
 import torch
 
 from leco_tpu_torch.config import _Section
+from leco_tpu_torch.utils import yaml_subset
 
 ACTION_TYPES = Literal["erase", "enhance"]
 
@@ -112,11 +113,9 @@ class PromptEmbedsPair:
 
 
 def load_prompts_from_yaml(path: str | Path) -> list[PromptSettings]:
-    """YAML list -> [PromptSettings] (prompt_util.py:151-160)."""
-    import yaml
-
-    with open(path, "r") as f:
-        prompts = yaml.safe_load(f)
+    """YAML list -> [PromptSettings] (prompt_util.py:151-160), read by the
+    port's own reader (`utils/yaml_subset.py`)."""
+    prompts = yaml_subset.load(path)
     if not prompts:
         raise ValueError("prompts file is empty")
     return [PromptSettings.from_dict(prompt) for prompt in prompts]

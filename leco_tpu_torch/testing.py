@@ -1,4 +1,4 @@
-"""Test/bench fixtures: randomly initialized model bundles.
+"""Test/bench fixtures: randomly initialized model bundles and checkpoints.
 
 Counterpart of `leco_tpu/testing.py`: a tiny UNet with a fake text encoder
 that runs the whole train loop on the CPU in seconds, and a full-width
@@ -6,22 +6,45 @@ SD1.5 bundle with random weights for the card (training speed does not
 depend on the weight values). Every draw comes from one seeded
 `torch.Generator`; the fake encoder is seeded by the prompt's sha256 through
 numpy.
+
+The checkpoint writers put random weights on disk in the layouts the
+loader reads, for the CLI: `write_single_file_checkpoint` an SD2-style LDM
+`.safetensors` (the UNet through the inverse of the port's UNet remap, the
+OpenCLIP tower through the inverse of `ldm_openclip_to_hf`) with a
+`tokenizer/` beside it, and `write_diffusers_checkpoint` a diffusers
+directory. The tokenizer is synthetic: the byte-level base vocabulary of
+CLIP's BPE (512 entries), merges that make each given word one token, and
+`<|startoftext|>` 49406 and `<|endoftext|>` 49407, so every id is below
+49408 and any text tokenizes.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
 import math
+import os
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
-from leco_tpu_torch.lora import LoRAConv2d, LoRALinear, LoRASpec, apply_lora_spec
+from leco_tpu_torch.lora import (
+    LoRAConv2d,
+    LoRALinear,
+    LoRASpec,
+    apply_lora_spec,
+    write_safetensors,
+)
+from leco_tpu_torch.models import convert
+from leco_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, sd2_text_config
+from leco_tpu_torch.models.tokenizer import SPECIAL_TOKENS, _bytes_to_unicode
 from leco_tpu_torch.models.unet import (
     UNet2DConditionModel,
     UNetConfig,
     sd15_config,
+    sd21_config,
     tiny_unet_config,
 )
 from leco_tpu_torch.ops.attention import default_backend
@@ -100,3 +123,143 @@ def make_sd15_bundle(dtype: torch.dtype = torch.bfloat16, **kw) -> ModelBundle:
     """Full-width SD1.5 bundle with random weights."""
     return make_random_bundle(config=sd15_config(), dtype=dtype,
                               param_dtype=dtype, **kw)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints on disk
+# ---------------------------------------------------------------------------
+
+# the words of the repo's example prompts: one token each
+PROMPT_WORDS = ("van", "gogh", "1girl", "cat", "ears", "realistic", "real", "life",
+                "instagram")
+VOCAB_SIZE = 49408
+
+
+def write_tokenizer(directory: str | os.PathLike, words=PROMPT_WORDS) -> None:
+    """A synthetic CLIP tokenizer (`vocab.json`, `merges.txt`) in
+    `directory`: byte-level base vocabulary, one merge chain per word, the
+    two special tokens at CLIP's ids."""
+    enc = _bytes_to_unicode()
+    base = list(enc.values())
+    vocab = {c: i for i, c in enumerate(base)}
+    vocab.update({c + "</w>": len(base) + i for i, c in enumerate(base)})
+    merges = []
+    for word in words:
+        pieces = [enc[b] for b in word.encode("utf-8")]
+        pieces[-1] += "</w>"
+        while len(pieces) > 1:
+            merged = pieces[0] + pieces[1]
+            if (pieces[0], pieces[1]) not in merges:
+                merges.append((pieces[0], pieces[1]))
+            vocab.setdefault(merged, len(vocab))
+            pieces = [merged] + pieces[2:]
+    vocab[SPECIAL_TOKENS[0]] = VOCAB_SIZE - 2
+    vocab[SPECIAL_TOKENS[1]] = VOCAB_SIZE - 1
+    d = Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "vocab.json").write_text(json.dumps(vocab))
+    (d / "merges.txt").write_text("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges))
+
+
+def random_unet_state(config: UNetConfig, seed: int = 0, dtype: torch.dtype = torch.float16,
+                      device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
+    """A random UNet state_dict (diffusers keys, no LoRA) on the CPU:
+    `init_unet_`'s weights, norms perturbed off 1 / 0."""
+    generator = torch.Generator(device)
+    generator.manual_seed(seed)
+    with torch.device(device):
+        unet = UNet2DConditionModel(config)
+    init_unet_(unet, generator, torch.float32)
+    state = {}
+    for k, v in unet.state_dict().items():
+        if v.ndim == 1 and ("norm" in k.rsplit(".", 2)[-2]):
+            v = v + 0.1 * torch.randn(v.shape, generator=generator, device=v.device)
+        state[k] = v.to(dtype).cpu()
+    return state
+
+
+def random_clip_state(config: CLIPTextConfig, seed: int = 0,
+                      dtype: torch.dtype = torch.float16,
+                      device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
+    """A random HF-keyed CLIP text-encoder state_dict on the CPU: N(0, 0.02)
+    embeddings and weights, zero biases, LayerNorms at 1 + N(0, 0.1) / 0."""
+    generator = torch.Generator(device)
+    generator.manual_seed(seed)
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in CLIPTextModel(config).state_dict().items()}
+    state = {}
+    for k, shape in shapes.items():
+        draw = torch.randn(shape, generator=generator, device=device)
+        if "layer_norm" in k:
+            v = 1 + 0.1 * draw if k.endswith("weight") else torch.zeros(shape, device=device)
+        elif k.endswith("bias"):
+            v = torch.zeros(shape, device=device)
+        else:
+            v = 0.02 * draw
+        state[k] = v.to(dtype).cpu()
+    return state
+
+
+def write_single_file_checkpoint(
+    path: str | os.PathLike,
+    unet_config: Optional[UNetConfig] = None,
+    text_config: Optional[CLIPTextConfig] = None,
+    seed: int = 0,
+    dtype: torch.dtype = torch.float16,
+    device: str | torch.device = "cpu",
+) -> Path:
+    """An SD2-style LDM single file with random weights: by default the
+    full-width SD2.1 UNet and OpenCLIP ViT-H's 24-layer text tower with its
+    `text_projection` (the loader keeps 23 layers), in `dtype`, plus a
+    synthetic `tokenizer/` beside the file."""
+    path = Path(path)
+    unet_config = unet_config or sd21_config()
+    text_config = text_config or sd2_text_config(24)
+    unet = convert.diffusers_unet_to_ldm(random_unet_state(unet_config, seed, dtype, device))
+    clip = random_clip_state(text_config, seed + 1, dtype, device)
+    generator = torch.Generator().manual_seed(seed + 2)
+    c = text_config.hidden_size
+    clip["text_projection.weight"] = (0.02 * torch.randn((c, c), generator=generator)).to(dtype)
+    tensors = {**unet, **convert.hf_clip_to_openclip(clip)}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_safetensors(path, tensors)
+    write_tokenizer(path.parent / "tokenizer")
+    return path
+
+
+def write_diffusers_checkpoint(
+    root: str | os.PathLike,
+    unet_config: UNetConfig,
+    text_config: CLIPTextConfig,
+    seed: int = 0,
+) -> Path:
+    """A diffusers directory with random fp32 weights: `unet/` and
+    `text_encoder/` (config.json + weights) and a synthetic `tokenizer/`."""
+    root = Path(root)
+    udir, tdir = root / "unet", root / "text_encoder"
+    udir.mkdir(parents=True, exist_ok=True)
+    tdir.mkdir(parents=True, exist_ok=True)
+    (udir / "config.json").write_text(json.dumps({
+        "down_block_types": list(unet_config.down_block_types),
+        "up_block_types": list(unet_config.up_block_types),
+        "block_out_channels": list(unet_config.block_out_channels),
+        "layers_per_block": unet_config.layers_per_block,
+        "transformer_layers_per_block": unet_config.transformer_layers_per_block,
+        "cross_attention_dim": unet_config.cross_attention_dim,
+        "attention_head_dim": unet_config.attention_head_dim,
+        "use_linear_projection": unet_config.use_linear_projection,
+        "upcast_attention": unet_config.upcast_attention,
+        "norm_num_groups": unet_config.norm_num_groups,
+    }))
+    write_safetensors(udir / "diffusion_pytorch_model.safetensors",
+                      random_unet_state(unet_config, seed, torch.float32))
+    (tdir / "config.json").write_text(json.dumps({
+        "architectures": ["CLIPTextModel"],
+        **{f: getattr(text_config, f) for f in (
+            "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+            "num_attention_heads", "max_position_embeddings", "hidden_act", "eos_token_id")},
+    }))
+    write_safetensors(tdir / "model.safetensors",
+                      random_clip_state(text_config, seed + 1, torch.float32))
+    write_tokenizer(root / "tokenizer")
+    return root

@@ -16,8 +16,11 @@ draws (pair, timesteps_to, resolution) from the same seeded
 `np.random.default_rng` stream in the same order as the JAX package, so the
 same config gives the same schedule. Not ported yet (raise
 NotImplementedError, queued in ROADMAP.md): step_chunk > 1, resume,
-save_state, ema_decay > 0, wandb, tensor/spatial parallelism. Saves are
-written synchronously whatever `save.async_write` says.
+save_state, ema_decay > 0, wandb, tensor/spatial parallelism,
+checkpoint_unet. `data_parallel: true` on one device is a no-op, as it is
+on one chip in the JAX package. Saves are written synchronously whatever
+`save.async_write` says. Progress is one printed line per iteration
+(`Loss*1k`), where the reference draws a tqdm bar.
 """
 
 from __future__ import annotations
@@ -124,6 +127,20 @@ def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
     return step
 
 
+def make_encode_fn(tokenizer, text_encoder: torch.nn.Module, device) -> Callable:
+    """prompt -> (1, 77, d) embedding: tokenize, then the CLIP text encoder's
+    final-LayerNorm last hidden state (train_util.encode_prompts,
+    train_util.py:77-85; the JAX CLI's encode_fn, train_lora.py:69-74)."""
+
+    @torch.no_grad()
+    def encode(prompt: str) -> torch.Tensor:
+        ids = torch.from_numpy(tokenizer([prompt]).astype("int64")).to(device)
+        last, _, _ = text_encoder(ids)
+        return last
+
+    return encode
+
+
 def build_pack(pair: PromptEmbedsPair) -> dict:
     """The per-iteration embedding batches for one prompt pair: inner
     [uncond]*b + [target]*b, references [positive]*b + [neutral]*b +
@@ -174,6 +191,7 @@ def _refuse_unported(config: RootConfig) -> None:
         "train.ema_decay > 0": t.ema_decay > 0.0,
         "train.tensor_parallel > 1": t.tensor_parallel > 1,
         "train.spatial_parallel != 1": t.spatial_parallel != 1,
+        "train.checkpoint_unet": t.checkpoint_unet,
         "logging.use_wandb": config.logging.use_wandb,
     }
     asked = [k for k, v in unported.items() if v]
@@ -229,13 +247,6 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
     # the device once per interval, not once per iteration)
     pending: list = []
 
-    try:
-        from tqdm import tqdm
-
-        pbar = tqdm(total=config.train.iterations)
-    except ImportError:
-        pbar = None
-
     def save(p: Path) -> None:
         print("Saving...")
         save_lora_weights(p, lora, bundle.spec, save_dtype, metadata)
@@ -256,8 +267,7 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
                         "(last good LoRA weights are in the previous periodic save)"
                     )
                 losses.append(loss_val)
-                if pbar is not None:
-                    pbar.set_description(f"Loss*1k: {loss_val * 1000:.4f}")
+                print(f"{j + 1}/{config.train.iterations} Loss*1k: {loss_val * 1000:.4f}")
                 record = {"loss": loss_val, "iteration": j, "lr": lr_at(j),
                           "timesteps_to": j_tsto, "resolution": [j_h, j_w]}
                 metrics_file.write(json.dumps(record) + "\n")
@@ -294,8 +304,6 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
             pending.append(((i, timesteps_to, height, width), loss))
             if len(pending) >= max(1, config.logging.interval):
                 drain()
-            if pbar is not None:
-                pbar.update(1)
 
             # periodic save (train_lora.py:292-302); per_steps <= 0 means
             # "final save only"
@@ -305,8 +313,6 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
                 save(save_path / f"{config.save.name}_{i}steps.safetensors")
 
         drain()
-        if pbar is not None:
-            pbar.close()
         save(save_path / f"{config.save.name}_last.safetensors")
     print("Done.")
     return {

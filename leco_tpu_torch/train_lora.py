@@ -1,0 +1,96 @@
+"""CLI entry point of the port: SD v1.x / v2.x LoRA-ESD training.
+
+    python -m leco_tpu_torch.train_lora --config_file <yaml> [--device cuda]
+
+The JAX package's `train_lora.py` (the reference's one flag,
+train_lora.py:333-343) plus `--device`, the port's counterpart of
+`JAX_PLATFORMS`: `cuda` (the default) raises when there is no GPU rather
+than running on the CPU; the CPU tests pass `--device cpu`. The steps are
+the JAX CLI's: config, prompts, precision, LoRA spec, the attention choice
+(`use_flash_attention`, else `use_xformers`, else the device's default),
+`load_models`, the parameter summaries, then `train`. The JAX CLI's
+multi-chip meshes have no counterpart yet: `data_parallel` on one device is
+a no-op, and tensor or spatial parallelism raises (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: CUDA is not available; pass --device cpu to run "
+            "on the CPU")
+    return device
+
+
+def main(args, on_step=None) -> dict:
+    """Train as the config says; returns `train()`'s result. `on_step(i,
+    loss)` is `train()`'s optional observer hook."""
+    from leco_tpu_torch.config import load_config_from_yaml, parse_precision
+    from leco_tpu_torch.lora import LoRASpec
+    from leco_tpu_torch.models.loader import load_models
+    from leco_tpu_torch.ops.attention import default_backend
+    from leco_tpu_torch.prompts import load_prompts_from_yaml
+    from leco_tpu_torch.train.trainer import (
+        ModelBundle,
+        _refuse_unported,
+        make_encode_fn,
+        train,
+    )
+    from leco_tpu_torch.utils.debug import check_frozen_params, check_trainable_params
+
+    device = resolve_device(args.device)
+    config = load_config_from_yaml(args.config_file)
+    _refuse_unported(config)  # before loading gigabytes of weights
+    prompts = load_prompts_from_yaml(config.prompts_file)
+    weight_dtype = parse_precision(config.train.precision)
+    spec = LoRASpec(
+        rank=config.network.rank,
+        alpha=config.network.alpha,
+        network_type=config.network.type,
+        train_method=config.network.training_method,
+    )
+    use_flash = config.other.use_flash_attention
+    if use_flash is None:
+        use_flash = config.other.use_xformers or default_backend(device) == "flash"
+
+    models = load_models(
+        config.pretrained_model.name_or_path,
+        scheduler_name=config.train.noise_scheduler,
+        v2=config.pretrained_model.v2,
+        v_pred=config.pretrained_model.v_pred,
+        weight_dtype=weight_dtype,
+        clip_skip=config.pretrained_model.clip_skip,
+        lora_spec=spec,
+        attn_backend="flash" if use_flash else "xla",
+        device=device,
+    )
+    bundle = ModelBundle(
+        unet=models.unet,
+        scheduler=models.scheduler,
+        spec=spec,
+        device=device,
+        encode_fn=make_encode_fn(models.tokenizer, models.text_encoder, device),
+    )
+    del models  # train() frees the text encoder once the prompts are encoded
+    check_trainable_params(bundle.unet)
+    check_frozen_params(bundle.unet)
+    return train(config, prompts, bundle, on_step=on_step)
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config_file", required=True, help="Config file for training.")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on (default cuda; no fallback)")
+    return parser.parse_args(argv)
+
+
+if __name__ == "__main__":
+    main(parse_args())

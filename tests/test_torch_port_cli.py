@@ -1,0 +1,135 @@
+"""The port's CLI, `python -m leco_tpu_torch.train_lora --config_file <yaml>
+--device cpu`, end to end on a tiny diffusers checkpoint written by
+`leco_tpu_torch.testing`: YAML config and prompts, tokenizer, CLIP, loader,
+a v-prediction DDIM train with `use_flash_attention: true` and
+LECO_FLASH_PACKED=1 at 128 px (the tiny UNet's level 0 has 256 tokens and
+takes the packed route), metrics.jsonl and the AddNet export in the JAX
+package's layout."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from flax.traverse_util import unflatten_dict
+
+from leco_tpu import lora as jax_lora
+from leco_tpu.models.convert import _fold_path
+from leco_tpu_torch import testing
+from leco_tpu_torch.models.clip import CLIPTextConfig
+from leco_tpu_torch.models.unet import tiny_unet_config
+from leco_tpu_torch.ops import flash_attention as fa
+from leco_tpu_torch.train_lora import main, parse_args
+from tests.test_torch_port_train_step import _flax_layout
+
+REPO = Path(__file__).resolve().parents[1]
+ITERATIONS, MAX_STEPS = 2, 3
+
+
+def write_run(tmp: Path, ckpt: Path, extra_train: str = "") -> Path:
+    (tmp / "prompts.yaml").write_text(
+        "# the van-gogh recipe at 128 px\n"
+        "- target: \"van gogh\"\n  positive: \"van gogh\"\n  unconditional: \"\"\n"
+        "  neutral: \"\"\n  action: \"erase\"\n  guidance_scale: 1.0\n"
+        "  resolution: 128\n  batch_size: 1\n")
+    config = tmp / "config.yaml"
+    config.write_text(f"""\
+prompts_file: "{tmp / 'prompts.yaml'}"
+pretrained_model:
+  name_or_path: "{ckpt}"
+  v2: true
+  v_pred: true
+network:
+  type: "lierla"
+  rank: 4
+  alpha: 1.0
+train:
+  precision: "float32"
+  noise_scheduler: "ddim"
+  iterations: {ITERATIONS}
+  lr: 1e-4
+  max_denoising_steps: {MAX_STEPS}
+  seed: 0
+  data_parallel: true{extra_train}
+save:
+  name: "tiny_cli"
+  path: "{tmp / 'out'}"
+  per_steps: 200
+  precision: "float32"
+other:
+  use_flash_attention: true
+""")
+    return config
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    text = CLIPTextConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                          num_attention_heads=2, hidden_act="gelu")
+    return testing.write_diffusers_checkpoint(tmp_path_factory.mktemp("ckpt"),
+                                              tiny_unet_config(32), text, seed=7)
+
+
+def test_cli_trains_on_the_packed_route(checkpoint, tmp_path, monkeypatch):
+    monkeypatch.setenv("LECO_FLASH_PACKED", "1")
+    calls = {"packed": 0, "3d": 0}
+    real_packed, real_3d = fa.attn_fwd_packed_plain, fa.attn_fwd_plain
+
+    def packed(*a):
+        calls["packed"] += 1
+        return real_packed(*a)
+
+    def three_d(*a):
+        calls["3d"] += 1
+        return real_3d(*a)
+
+    monkeypatch.setattr(fa, "attn_fwd_packed_plain", packed)
+    monkeypatch.setattr(fa, "attn_fwd_plain", three_d)
+    result = main(parse_args(["--config_file", str(write_run(tmp_path, checkpoint)),
+                              "--device", "cpu"]))
+    assert len(result["losses"]) == ITERATIONS and all(np.isfinite(result["losses"]))
+
+    out = tmp_path / "out"
+    records = [json.loads(ln) for ln in (out / "metrics.jsonl").read_text().splitlines()]
+    rng = np.random.default_rng(0)  # the host stream: (pair, timesteps_to) draws
+    tsto = []
+    for i, r in enumerate(records):
+        assert int(rng.integers(0, 1)) == 0
+        tsto.append(int(rng.integers(1, MAX_STEPS)))
+        assert (r["iteration"], r["timesteps_to"], r["resolution"]) == (i, tsto[-1], [128, 128])
+    # 3 level-0 self-attentions per UNet forward, t_to + 2 forwards per step
+    assert calls == {"packed": 3 * sum(t + 2 for t in tsto), "3d": 0}
+
+    tree = {_fold_path(k.rsplit(".", 1)[0]) + (k.rsplit(".", 1)[1],): _flax_layout(k, v)
+            for k, v in result["lora"].items()}
+    want = jax_lora.export_lora_state(unflatten_dict(tree), jax_lora.LoRASpec(4, 1.0))
+    from safetensors.numpy import load_file
+
+    got = load_file(str(out / "tiny_cli_last.safetensors"))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_cli_module_refuses_cuda_without_a_gpu(checkpoint, tmp_path):
+    """`--device` defaults to cuda and never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "leco_tpu_torch.train_lora", "--config_file",
+         str(write_run(tmp_path, checkpoint))],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_refuses_unported_options_before_loading(tmp_path):
+    config = write_run(tmp_path, tmp_path / "not-there", "\n  checkpoint_unet: true")
+    with pytest.raises(NotImplementedError, match="train.checkpoint_unet"):
+        main(parse_args(["--config_file", str(config), "--device", "cpu"]))

@@ -1,7 +1,7 @@
 """The port's config tree, prompt schema and ESD loss against the JAX
-package's, and a run of the port's main path with every package outside
-torch, numpy and einops blocked (a GPU deployment has no pydantic, yaml,
-safetensors or tqdm)."""
+package's, and a run of the port's main path and of its CLI with every
+package outside torch, numpy and einops blocked (a GPU deployment has no
+pydantic, yaml, safetensors, tqdm or regex)."""
 
 import os
 import subprocess
@@ -108,7 +108,8 @@ def test_esd_loss_matches_jax(action, sign, dtype):
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
 
-BLOCKED = ("jax", "flax", "optax", "pydantic", "yaml", "safetensors", "tqdm", "leco_tpu")
+BLOCKED = ("jax", "flax", "optax", "pydantic", "yaml", "safetensors", "tqdm", "regex",
+           "leco_tpu")
 
 MAIN_PATH_WITHOUT_EXTRAS = textwrap.dedent(
     """
@@ -132,6 +133,29 @@ MAIN_PATH_WITHOUT_EXTRAS = textwrap.dedent(
                   make_random_bundle(attn_backend="flash"))
         assert len(r["losses"]) == 1 and len(r["saved"]) == 1, r
     print("MAIN PATH OK")
+
+    # the CLI on a tiny checkpoint: YAML, tokenizer, CLIP, loader, packed route
+    import os
+    from pathlib import Path
+    from leco_tpu_torch import testing
+    from leco_tpu_torch.models.clip import CLIPTextConfig
+    from leco_tpu_torch.models.unet import tiny_unet_config
+    from leco_tpu_torch.train_lora import main, parse_args
+    os.environ["LECO_FLASH_PACKED"] = "1"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        testing.write_diffusers_checkpoint(tmp / "ckpt", tiny_unet_config(32), CLIPTextConfig(
+            hidden_size=32, intermediate_size=64, num_hidden_layers=2, num_attention_heads=2))
+        (tmp / "prompts.yaml").write_text("- target: 'van gogh'\\n  resolution: 128\\n")
+        (tmp / "config.yaml").write_text(
+            f"prompts_file: '{{tmp / 'prompts.yaml'}}'\\n"
+            f"pretrained_model:\\n  name_or_path: '{{tmp / 'ckpt'}}'\\n  v_pred: true\\n"
+            "train:\\n  iterations: 1\\n  max_denoising_steps: 2\\n  seed: 0\\n  lr: 1e-4\\n"
+            f"save:\\n  name: t\\n  path: '{{tmp / 'out'}}'\\n"
+            "other:\\n  use_flash_attention: true\\n")
+        r = main(parse_args(["--config_file", str(tmp / "config.yaml"), "--device", "cpu"]))
+        assert len(r["losses"]) == 1 and (tmp / "out" / "t_last.safetensors").exists(), r
+    print("CLI OK")
     """
 ).format(blocked=BLOCKED)
 
@@ -143,4 +167,4 @@ def test_main_path_runs_with_torch_numpy_einops_only():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "MAIN PATH OK" in proc.stdout
+    assert "MAIN PATH OK" in proc.stdout and "CLI OK" in proc.stdout

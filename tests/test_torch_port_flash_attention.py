@@ -3,7 +3,9 @@
 The JAX side runs its kernels in interpret mode on the CPU, as
 tests/test_flash_attention.py does; the port's side runs the kernels' plain
 PyTorch versions (what a wrapper takes for a CPU tensor). Inputs are made
-from a seed with numpy and rounded to bf16 identically on both sides."""
+from a seed with numpy and rounded to bf16 identically on both sides. The
+packed-layout kernel (`LECO_FLASH_PACKED=1`) is held to the JAX package's
+`flash_attention_packed` the same way, its shape rule to `supports_packed`."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from leco_tpu.ops import flash_attention as jax_fa
 from leco_tpu.ops.flash_attention import _flash_fwd_3d, flash_attention
 from leco_tpu_torch.ops import flash_attention as fa
 from leco_tpu_torch.ops.attention import _xla_attention, multi_head_attention
@@ -81,7 +84,12 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     for a, b in zip(fa.attn_bwd_dkv(q, k, v, o, lse, delta, 0.1),
                     fa.attn_bwd_dkv_plain(q, k, v, o, lse, delta, 0.1)):
         assert torch.equal(a, b)
-    assert fa.launch_counts() == {"attn_fwd": 0, "attn_bwd_dq": 0, "attn_bwd_dkv": 0}
+    o2 = fa.attn_fwd_packed(q.reshape(1, 512, 40), k.reshape(1, 512, 40),
+                            v.reshape(1, 512, 40), 1, 0.1)
+    assert torch.equal(o2, fa.attn_fwd_packed_plain(q.reshape(1, 512, 40), k.reshape(1, 512, 40),
+                                                    v.reshape(1, 512, 40), 1, 0.1))
+    assert fa.launch_counts() == {"attn_fwd": 0, "attn_bwd_dq": 0, "attn_bwd_dkv": 0,
+                                  "attn_fwd_packed": 0}
 
 
 @pytest.mark.parametrize(
@@ -119,3 +127,75 @@ def test_plain_attention_matches_jax_xla_attention():
     want = jax_xla_attention(*map(jnp.asarray, (q, k, v)), 0.25, True)
     got = _xla_attention(*map(torch.from_numpy, (q, k, v)), 0.25, True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+PACKED_SHAPES = [(2, 256, 256, 2, 40), (1, 256, 300, 2, 64), (1, 512, 512, 4, 16)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,n,nk,heads,d", PACKED_SHAPES)
+def test_packed_forward_matches_jax_kernel(b, n, nk, heads, d, dtype):
+    """`attn_fwd_packed_plain` against `_attn_kernel_packed` in interpret
+    mode; Nk = 300 pads to 384 and masks the padding."""
+    jdt, tdt = DTYPES[dtype]
+    q, k, v = _inputs(5, (b, n, heads * d), (b, nk, heads * d), (b, nk, heads * d))
+    scale = d**-0.5
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_fa.flash_attention_packed(*(jnp.asarray(x).astype(jdt) for x in (q, k, v)),
+                                             heads, scale)
+    got = fa.attn_fwd_packed_plain(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)), heads, scale)
+    assert got.dtype == tdt and got.shape == (b, n, heads * d)
+    atol = {"float32": 1e-5, "bfloat16": ATOL["bfloat16"]}[dtype]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=atol)
+
+
+@pytest.mark.parametrize("b,n,nk,heads,d", PACKED_SHAPES[:2])
+def test_packed_gradients_match_jax(b, n, nk, heads, d):
+    """FlashAttentionPacked (plain forward, plain fp32 backward on the CPU)
+    against jax.grad through `flash_attention_packed`'s custom VJP, fp32."""
+    q, k, v = _inputs(6, (b, n, heads * d), (b, nk, heads * d), (b, nk, heads * d))
+    scale = d**-0.5
+
+    def f_jax(q, k, v):
+        return jnp.sum(jax_fa.flash_attention_packed(q, k, v, heads, scale) ** 2)
+
+    with pltpu.force_tpu_interpret_mode():
+        g_jax = jax.grad(f_jax, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (fa.flash_attention_packed(qt, kt, vt, heads, scale) ** 2).sum().backward()
+    for got, want in zip((qt.grad, kt.grad, vt.grad), g_jax):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_supports_packed_matches_jax(itemsize):
+    grid = [(nq, nk, c, heads) for nq in (64, 256, 300, 1024, 4096, 8192, 16384)
+            for nk in (77, 256, 300, 1024, 4096, 8192) for c, heads in
+            ((320, 5), (320, 8), (640, 10), (1280, 20), (1280, 8), (96, 7))]
+    got = [fa.supports_packed(*g, itemsize) for g in grid]
+    assert got == [jax_fa.supports_packed(*g, itemsize) for g in grid]
+    assert any(got) and not all(got)
+    # every self-attention of SD1.5 and SD2.1 at 512 px takes the packed route
+    for n, c, heads in ((4096, 320, 5), (1024, 640, 10), (256, 1280, 20), (4096, 320, 8),
+                        (1024, 640, 8), (256, 1280, 8)):
+        assert fa.supports_packed(n, n, c, heads)
+
+
+@pytest.mark.parametrize("n,nk,knob,route", [(256, 256, "1", "packed"), (256, 256, "0", "3d"),
+                                             (256, 256, None, "3d"), (64, 64, "1", "plain"),
+                                             (256, 77, "1", "plain")])
+def test_packed_knob_routes_at_call_time(n, nk, knob, route, monkeypatch):
+    if knob is None:
+        monkeypatch.delenv("LECO_FLASH_PACKED", raising=False)
+    else:
+        monkeypatch.setenv("LECO_FLASH_PACKED", knob)
+    calls = []
+    real_3d, real_packed = fa.flash_attention_3d, fa.flash_attention_packed
+    monkeypatch.setattr(fa, "flash_attention_3d", lambda *a: calls.append("3d") or real_3d(*a))
+    monkeypatch.setattr(fa, "flash_attention_packed",
+                        lambda *a: calls.append("packed") or real_packed(*a))
+    q, k, v = (torch.from_numpy(x) for x in _inputs(7, (2, n, 32), (2, nk, 32), (2, nk, 32)))
+    out = multi_head_attention(q, k, v, num_heads=2, backend="flash")
+    ref = _xla_attention(*(t.reshape(2, -1, 2, 16) for t in (q, k, v)), 16**-0.5, False)
+    assert calls == ([] if route == "plain" else [route])
+    np.testing.assert_allclose(out.numpy(), ref.reshape(2, n, 32).numpy(), atol=1e-5)

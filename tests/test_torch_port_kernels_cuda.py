@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (flash attention; the fused conv, GroupNorm-conv,
-GroupNorm and GEGLU kernels) against their plain versions, on the card.
+"""The port's CUDA kernels (flash attention, 3-d and packed; the fused conv,
+GroupNorm-conv, GroupNorm and GEGLU kernels) against their plain versions,
+on the card.
 Marked `cuda`: without a CUDA device every test here skips. Run them on a
 GPU machine with
 
@@ -52,7 +53,7 @@ def test_kernels_match_plain(device, nq, nk, d):
     dk, dv = fa.attn_bwd_dkv(q, k, v, g, lse_ref, delta, scale)
     torch.cuda.synchronize()
     assert {n: c - before[n] for n, c in fa.launch_counts().items()} == {
-        "attn_fwd": 1, "attn_bwd_dq": 1, "attn_bwd_dkv": 1}
+        "attn_fwd": 1, "attn_bwd_dq": 1, "attn_bwd_dkv": 1, "attn_fwd_packed": 0}
     assert (o.float() - o_ref.float()).abs().max() <= ATOL_O
     assert (lse - lse_ref).abs().max() <= ATOL_LSE
     refs = (fa.attn_bwd_dq_plain(q, k, v, g, lse_ref, delta, scale),
@@ -84,6 +85,41 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
     q = torch.zeros((2, 40, 256), device=device, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError):
         fa.attn_fwd(q, q, q, 0.1)  # not contiguous
+
+
+@pytest.mark.parametrize("b,nq,nk,heads,d", [(2, 256, 256, 5, 64), (2, 300, 300, 8, 40),
+                                             (1, 256, 300, 2, 80), (1, 256, 256, 4, 160),
+                                             (1, 1024, 77, 10, 64)])
+def test_packed_kernel_matches_plain(device, b, nq, nk, heads, d):
+    """(B, N, heads * D) in place: ragged N, every head dim, and a masked
+    key count."""
+    gen = torch.Generator(device).manual_seed(6)
+    c = heads * d
+    q = _rand(gen, (b, nq, c), device)
+    k, v = _rand(gen, (b, nk, c), device), _rand(gen, (b, nk, c), device)
+    before = fa.launch_counts()
+    o = fa.attn_fwd_packed(q, k, v, heads, d**-0.5)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in fa.launch_counts().items()} == {
+        "attn_fwd": 0, "attn_bwd_dq": 0, "attn_bwd_dkv": 0, "attn_fwd_packed": 1}
+    ref = fa.attn_fwd_packed_plain(q, k, v, heads, d**-0.5)
+    assert o.shape == ref.shape == (b, nq, c) and o.dtype == torch.bfloat16
+    assert (o.float() - ref.float()).abs().max() <= ATOL_O
+    # the same attention through the 3-d kernel, head by head
+    o3, _ = fa.attn_fwd(*(t.reshape(b, -1, heads, d).transpose(1, 2).reshape(b * heads, -1, d)
+                          .contiguous() for t in (q, k, v)), d**-0.5)
+    assert torch.equal(o3.reshape(b, heads, nq, d).transpose(1, 2).reshape(b, nq, c), o)
+
+
+def test_packed_wrapper_refuses_what_the_kernel_does_not_take(device):
+    q = torch.zeros((2, 256, 320), device=device)
+    with pytest.raises(TypeError):
+        fa.attn_fwd_packed(q, q, q, 5, 0.1)  # fp32 is not a kernel dtype
+    q = q.bfloat16()
+    with pytest.raises(ValueError):
+        fa.attn_fwd_packed(q, q, q, 10, 0.1)  # head dim 32 has no kernel
+    with pytest.raises(ValueError):  # not contiguous
+        fa.attn_fwd_packed(q.transpose(0, 1).contiguous().transpose(0, 1), q, q, 5, 0.1)
 
 
 def _close(got, ref):
