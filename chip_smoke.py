@@ -9,13 +9,18 @@ Phases, each printing its result on a line of its own:
                (sm_90a), one process per source;
   3. kernels — each flash-attention kernel against its plain PyTorch version
                in bf16 at the training path's shapes (SD1.5 and SD2.1), with
-               times; the packed-layout forward (LECO_FLASH_PACKED=1) at the
-               SD2.1 and SD1.5 512 px self-attention shapes and a masked
-               ragged key count, timed against its plain version and against
-               the 3-d route with its head transposes;
+               times of the kernel, its plain version and
+               F.scaled_dot_product_attention (the library's call, which the
+               port never makes), and each shape's roofline bound; the
+               packed-layout forward (LECO_FLASH_PACKED=1) at the SD2.1 and
+               SD1.5 512 px self-attention shapes and a masked ragged key
+               count, timed the same way and against the 3-d route with its
+               head transposes;
   4. fused_kernels — the same for the fused configuration's kernels (3x3
                conv and its dx, GroupNorm-SiLU-conv, GroupNorm, GEGLU with
-               and without the LoRA delta) at the SD1.5 512 px shapes;
+               and without the LoRA delta) at the SD1.5 512 px shapes, with
+               F.conv2d and F.group_norm as the library's calls (no single
+               PyTorch call computes GroupNorm-SiLU-conv or GEGLU);
   5. unet    — one full-width SD1.5 forward through the kernels against the
                same forward through plain attention;
   6. unet_fused — one full-width 512 px forward with the fused
@@ -44,7 +49,9 @@ Phases, each printing its result on a line of its own:
                losses and saves that read back equal.
 The knobs are the JAX package's: LECO_CONV_BACKEND=gemm, LECO_RESNET_FUSED=1,
 LECO_TPU_FUSED_GN=1, LECO_GEGLU=fused, and LECO_FLASH_PACKED=1. Then a JSON
-line with every kernel's launches, error and times, and as the last line
+line with every kernel's launches, error, times (kernel, plain, library)
+and roofline bound (`leco_tpu_torch/kernels/roofline.py`) at the shape where
+the path runs it most, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: the script then exits
 non-zero and prints no result. It needs CUDA and the rest of the repo.
 """
@@ -102,14 +109,24 @@ TIMED_SHAPE = {
     "attn_bwd_dq": (8, 4096, 4096, 40),
     "attn_bwd_dkv": (8, 4096, 4096, 40),
 }
-# O: bf16 outputs and a reassociating online softmax — the bf16 bound of
-# tests/test_flash_attention.py; LSE is fp32; gradients relative to their size
+# O: bf16 outputs from a reassociating online softmax. The sound error is a
+# bf16 ulp of the largest outputs (at most 2^-7 of max|ref|), so O is held to
+# RTOL_O x max|ref| (2.5-5 ulps) and never above ATOL_O, the bf16 bound of
+# tests/test_flash_attention.py. The control: the plain version without its
+# last DROPPED_KEYS keys, what a kernel that loses a key tile computes, must
+# fail that limit. LSE is fp32; gradients relative to their size
 ATOL_O = 2e-2
+RTOL_O = 2e-2
+DROPPED_KEYS = 64
 ATOL_LSE = 1e-3
 RTOL_GRAD = 2e-2
 # the whole UNet through the kernels vs through plain attention, bf16:
 # relative to the output's largest magnitude
 RTOL_UNET = 5e-2
+# timing: calls back to back in each CUDA-event sample; seconds of matrix
+# products before the first timing
+TIME_REPS = 10
+WARM_UP_SECONDS = 0.5
 FLASH_ATTENTIONS_PER_FORWARD = 15  # SD1.5 and SD2.1 at 512 px: 6 down + 9 up blocks
 KERNELS = {
     "attn_fwd": ("leco_tpu_torch/kernels/csrc/flash_fwd.cu",
@@ -241,8 +258,24 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+def check_o(o, o_ref, o_dropped, shape) -> dict:
+    """Hold O to min(ATOL_O, RTOL_O x max|ref|), and check that this limit
+    fails the control `o_dropped` -> the error, the limit and the control's
+    error."""
+    ref = o_ref.float()
+    limit = min(ATOL_O, RTOL_O * ref.abs().max().item())
+    err = (o.float() - ref).abs().max().item()
+    control = (o_dropped.float() - ref).abs().max().item()
+    check(err <= limit, f"O error {err} > {limit} at {shape}")
+    check(control > limit, f"the O limit {limit} passes the plain version without "
+                           f"its last {DROPPED_KEYS} keys ({control}) at {shape}")
+    return {"o": err, "o_limit": limit, "o_control": control}
+
+
 def time_ms(fn, warmup: int = 2, iters: int = 7) -> float:
-    """Median of CUDA-event timings of single calls, after a warm-up."""
+    """Median of `iters` CUDA-event timings, after a warm-up, each of
+    TIME_REPS calls back to back divided by TIME_REPS: the card's time per
+    call, not the host's time to enqueue one call onto an idle card."""
     import torch
 
     for _ in range(warmup):
@@ -252,11 +285,25 @@ def time_ms(fn, warmup: int = 2, iters: int = 7) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(TIME_REPS):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / TIME_REPS)
     return statistics.median(times)
+
+
+def warm_up_clocks(device) -> None:
+    """Keep the card busy for WARM_UP_SECONDS with bf16 matrix products, so
+    that the first kernel timed does not catch its clocks on the way up."""
+    import torch
+
+    a = torch.ones((8192, 8192), dtype=torch.bfloat16, device=device)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < WARM_UP_SECONDS:
+        for _ in range(20):
+            a @ a
+        torch.cuda.synchronize()
 
 
 def phase_device() -> dict:
@@ -292,11 +339,14 @@ def phase_build() -> dict:
 
 def phase_kernels(device) -> dict:
     import torch
+    import torch.nn.functional as F
 
+    from leco_tpu_torch.kernels import roofline
     from leco_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device)
     gen.manual_seed(0)
+    warm_up_clocks(device)
     worst = {name: 0.0 for name in FLASH}
     timed = {}
     for bh, nq, nk, d in KERNEL_SHAPES:
@@ -320,11 +370,12 @@ def phase_kernels(device) -> dict:
         def size(a):
             return a.float().abs().max().item()
 
+        o_dropped, _ = fa.attn_fwd_plain(q, k[:, :-DROPPED_KEYS], v[:, :-DROPPED_KEYS], scale)
+        o_check = check_o(o, o_ref, o_dropped, (bh, nq, nk, d))
         e = {
-            "o": err(o, o_ref), "lse": err(lse, lse_ref),
+            "o": o_check["o"], "lse": err(lse, lse_ref),
             "dq": err(dq, dq_ref), "dk": err(dk, dk_ref), "dv": err(dv, dv_ref),
         }
-        check(e["o"] <= ATOL_O, f"O error {e['o']} > {ATOL_O} at {(bh, nq, nk, d)}")
         check(e["lse"] <= ATOL_LSE, f"LSE error {e['lse']} > {ATOL_LSE} at {(bh, nq, nk, d)}")
         for key, ref in (("dq", dq_ref), ("dk", dk_ref), ("dv", dv_ref)):
             check(e[key] <= RTOL_GRAD * size(ref),
@@ -343,13 +394,30 @@ def phase_kernels(device) -> dict:
                 time_ms(lambda: fa.attn_bwd_dkv(q, k, v, g, lse_ref, delta, scale)),
                 time_ms(lambda: fa.attn_bwd_dkv_plain(q, k, v, g, lse_ref, delta, scale))),
         }
+        # the library's forward, then the kernel's second turn
+        q4, k4, v4 = q[None], k[None], v[None]
+        library = {"attn_fwd": time_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))}
+        fwd_second_turn = time_ms(lambda: fa.attn_fwd(q, k, v, scale))
+        if (bh, nq, nk, d) == TIMED_SHAPE["attn_bwd_dq"] == TIMED_SHAPE["attn_bwd_dkv"]:
+            # one SDPA backward computes what the dq and dkv kernels compute together
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+            out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+            library["attn_bwd_dq"] = library["attn_bwd_dkv"] = time_ms(
+                lambda: torch.autograd.grad(out, (qg, kg, vg), g[None], retain_graph=True))
+            del qg, kg, vg, out
         for name, shape in TIMED_SHAPE.items():
             if (bh, nq, nk, d) == shape:
-                timed[name] = ms[name]
+                timed[name] = (*ms[name], library.get(name))
         print(json.dumps({"shape": [bh, nq, nk, d], "max_abs_err": e,
+                          "o_limit": o_check["o_limit"], "o_control": o_check["o_control"],
                           "ms": {n: t[0] for n, t in ms.items()},
-                          "plain_ms": {n: t[1] for n, t in ms.items()}}), flush=True)
-        del q, k, v, g, o, o_ref, dq, dq_ref, dk, dk_ref, dv, dv_ref
+                          "plain_ms": {n: t[1] for n, t in ms.items()},
+                          "library_ms": library,
+                          "attn_fwd_second_turn_ms": fwd_second_turn,
+                          "bound_ms": {n: roofline.kernel_bound(n, (bh, nq, nk, d))["bound_ms"]
+                                       for n in FLASH}}), flush=True)
+        del q, k, v, g, o, o_ref, o_dropped, dq, dq_ref, dk, dk_ref, dv, dv_ref
         torch.cuda.empty_cache()
     worst[PACKED], timed[PACKED], route_3d_ms = packed_kernel_checks(device, gen)
     return {"worst_abs_err": worst, "timed_shapes": {**TIMED_SHAPE, PACKED: PACKED_TIMED},
@@ -360,12 +428,14 @@ def phase_kernels(device) -> dict:
 
 def packed_kernel_checks(device, gen):
     """The packed forward against its plain version at PACKED_SHAPES ->
-    (worst error, (kernel ms, plain ms) at PACKED_TIMED, ms of the 3-d route
-    at PACKED_TIMED: the head transposes into (B·H, N, D), the 3-d kernel,
-    and the transpose back, as `ops/attention.py` runs it)."""
+    (worst error, (kernel, plain, library ms) at PACKED_TIMED, ms of the 3-d
+    route at PACKED_TIMED: the head transposes into (B·H, N, D), the 3-d
+    kernel, and the transpose back, as `ops/attention.py` runs it)."""
     import torch
+    import torch.nn.functional as F
     from einops import rearrange
 
+    from leco_tpu_torch.kernels import roofline
     from leco_tpu_torch.ops import flash_attention as fa
 
     worst, timed, route_3d_ms = 0.0, None, None
@@ -381,10 +451,18 @@ def packed_kernel_checks(device, gen):
         shape = (b, nq, nk, c, heads)
         check(tuple(o.shape) == (b, nq, c) and bool(torch.isfinite(o.float()).all()),
               f"packed output {tuple(o.shape)} at {shape}")
-        err = (o.float() - o_ref.float()).abs().max().item()
-        check(err <= ATOL_O, f"packed O error {err} > {ATOL_O} at {shape}")
+        o_check = check_o(o, o_ref, fa.attn_fwd_packed_plain(
+            q, k[:, :-DROPPED_KEYS], v[:, :-DROPPED_KEYS], heads, scale), shape)
+        err = o_check.pop("o")
         worst = max(worst, err)
-        row = {"kernel": PACKED, "shape": list(shape), "max_abs_err": err}
+        q4, k4, v4 = (t.view(b, t.shape[1], heads, c // heads).transpose(1, 2)
+                      for t in (q, k, v))
+        row = {"kernel": PACKED, "shape": list(shape), "max_abs_err": err, **o_check,
+               "ms": time_ms(lambda: fa.attn_fwd_packed(q, k, v, heads, scale)),
+               "plain_ms": time_ms(lambda: fa.attn_fwd_packed_plain(q, k, v, heads, scale)),
+               "library_ms": time_ms(
+                   lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
+               **roofline.kernel_bound(PACKED, shape)}
         if shape == PACKED_TIMED:
             def route_3d():
                 q3, k3, v3 = (rearrange(t, "b n (h d) -> (b h) n d", h=heads).contiguous()
@@ -393,15 +471,13 @@ def packed_kernel_checks(device, gen):
                 return rearrange(o3, "(b h) n d -> b n (h d)", h=heads).contiguous()
 
             check(torch.equal(route_3d(), o), "the packed and 3-d kernels differ")
-            # in turns: packed, 3-d route, 3-d route, packed
-            packed_ms = [time_ms(lambda: fa.attn_fwd_packed(q, k, v, heads, scale))]
+            # in turns: packed (above), 3-d route, 3-d route, packed
+            packed_ms = [row["ms"]]
             route_ms = [time_ms(route_3d), time_ms(route_3d)]
             packed_ms.append(time_ms(lambda: fa.attn_fwd_packed(q, k, v, heads, scale)))
-            timed = (statistics.median(packed_ms),
-                     time_ms(lambda: fa.attn_fwd_packed_plain(q, k, v, heads, scale)))
+            timed = (row["ms"], row["plain_ms"], row["library_ms"])
             route_3d_ms = statistics.median(route_ms)
-            row.update(ms=timed[0], plain_ms=timed[1], route_3d_ms=route_3d_ms,
-                       ms_turns=packed_ms, route_3d_ms_turns=route_ms)
+            row.update(route_3d_ms=route_3d_ms, ms_turns=packed_ms, route_3d_ms_turns=route_ms)
         print(json.dumps(row), flush=True)
         del q, k, v, o, o_ref
         torch.cuda.empty_cache()
@@ -410,10 +486,13 @@ def packed_kernel_checks(device, gen):
 
 
 def phase_fused_kernels(device) -> dict:
-    """Each fused kernel against its plain version at the path's shapes, and
-    both timed at the kernel's most frequent shape."""
+    """Each fused kernel against its plain version at the path's shapes; at
+    the kernel's most frequent shape the kernel, the plain version and the
+    library's call (where one exists) timed, and the roofline bound."""
     import torch
+    import torch.nn.functional as F
 
+    from leco_tpu_torch.kernels import roofline
     from leco_tpu_torch.ops import conv, geglu, gn_conv
     from leco_tpu_torch.ops import group_norm as gn
 
@@ -430,7 +509,7 @@ def phase_fused_kernels(device) -> dict:
     timed = {}
     rows = []
 
-    def held(name, shape, got, ref, kernel_fn, plain_fn):
+    def held(name, shape, got, ref, kernel_fn, plain_fn, library_fn=None):
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got.float()).all()), f"{name} non-finite at {shape}")
         err = (got.float() - ref.float()).abs().max().item()
@@ -440,8 +519,10 @@ def phase_fused_kernels(device) -> dict:
         worst[name] = max(worst[name], err)
         row = {"kernel": name, "shape": list(shape), "max_abs_err": err, "max_abs_ref": size}
         if FUSED_TIMED.get(name) == tuple(shape[:len(FUSED_TIMED[name])]) and name not in timed:
-            timed[name] = (time_ms(kernel_fn), time_ms(plain_fn))
-            row["ms"], row["plain_ms"] = timed[name]
+            timed[name] = (time_ms(kernel_fn), time_ms(plain_fn),
+                           time_ms(library_fn) if library_fn else None)
+            row["ms"], row["plain_ms"], row["library_ms"] = timed[name]
+            row.update(roofline.kernel_bound(name, FUSED_TIMED[name]))
         rows.append(row)
         print(json.dumps(row), flush=True)
 
@@ -452,9 +533,11 @@ def phase_fused_kernels(device) -> dict:
             wt, bias, tag = conv.flip_weight(wt), None, "dx"
         else:
             bias, tag = fp32((cout,)), "fwd"
+        bias_bf16 = None if bias is None else bias.to(torch.bfloat16)
         held("conv3x3", (b, cin, h, w, cout, tag), conv.conv3x3_gemm(x, wt, bias),
              conv.conv3x3_gemm_plain(x, wt, bias),
-             lambda: conv.conv3x3_gemm(x, wt, bias), lambda: conv.conv3x3_gemm_plain(x, wt, bias))
+             lambda: conv.conv3x3_gemm(x, wt, bias), lambda: conv.conv3x3_gemm_plain(x, wt, bias),
+             lambda: F.conv2d(x, wt, bias_bf16, padding=1))
     for b, cin, h, w, cout in GNCONV_SHAPES:
         x = bf16((b, cin, h, w))
         a, s = gn_conv.affine_from_gn(x, fp32((cin,), 0.1, 1.0), fp32((cin,), 0.1),
@@ -467,11 +550,13 @@ def phase_fused_kernels(device) -> dict:
     for b, c, h, w, eps, silu in GN_SHAPES:
         x = bf16((b, c, h, w), 2.0)
         scale, bias = fp32((c,), 0.1, 1.0), fp32((c,), 0.1)
+        w16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
         held("group_norm", (b, c, h, w, eps, silu),
              gn.group_norm_silu(x, scale, bias, 32, eps, silu),
              gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu),
              lambda: gn.group_norm_silu(x, scale, bias, 32, eps, silu),
-             lambda: gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu))
+             lambda: gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu),
+             None if silu else lambda: F.group_norm(x, 32, w16, b16, eps))
     for m, k, n, r in GEGLU_SHAPES:
         x, wt, bias = bf16((m, k)), bf16((2 * n, k), k**-0.5), fp32((2 * n,))
         xd, up = (bf16((m, r)), bf16((2 * n, r), 0.1)) if r else (None, None)
@@ -575,6 +660,7 @@ def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
     check(busy_us > 0, "the profiler saw no device time")
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
     flash_us = sum(e.self_device_time_total for e in kernels if "leco::flash_" in e.key)
+    flash_fwd_us = sum(e.self_device_time_total for e in kernels if "flash_fwd_kernel" in e.key)
 
     walls = {"flash": [], "plain": []}
     for backend in ("flash", "plain", "plain", "flash"):
@@ -605,6 +691,7 @@ def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
         # against the unprofiled step: the profiler slows the host down
         "device_idle_share": 1.0 - busy_us / 1e6 / min(walls["flash"]),
         "flash_kernels_share_of_busy": flash_us / busy_us,
+        "flash_fwd_share_of_busy": flash_fwd_us / busy_us,
         "kernel_launches": sum(e.count for e in kernels),
         "top_kernels": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top],
         "step_s_flash_vs_plain_attention": walls,
@@ -872,6 +959,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script needs one GPU")
     sys.path.insert(0, str(REPO))
+    from leco_tpu_torch.kernels import roofline
     from leco_tpu_torch.testing import make_sd15_bundle
 
     device = torch.device("cuda", 0)
@@ -914,6 +1002,7 @@ def main() -> None:
     measured = {**{n: (kernels, train_result) for n in FLASH},
                 PACKED: (kernels, cli["packed"]),
                 **{n: (fused_kernels, train_fused) for n in FUSED}}
+    timed_shapes = {**TIMED_SHAPE, PACKED: PACKED_TIMED, **FUSED_TIMED}
     print(json.dumps({"kernels": [
         {
             "name": name,
@@ -924,6 +1013,10 @@ def main() -> None:
             "max_abs_err": measured[name][0]["worst_abs_err"][name],
             "ms": measured[name][0]["timed_ms"][name][0],
             "plain_ms": measured[name][0]["timed_ms"][name][1],
+            # the least time for the same work at the timed shape
+            **roofline.kernel_bound(name, timed_shapes[name]),
+            # one PyTorch call that computes the same function, or null
+            "library_ms": measured[name][0]["timed_ms"][name][2],
         }
         for name, (source, replaces) in KERNELS.items()
     ]}), flush=True)

@@ -1,10 +1,10 @@
-// Shared pieces of the three flash-attention kernels: tile loads from device
-// memory into shared memory, and a warp-level bf16 tensor-core product.
+// Shared pieces of the two flash-attention backward kernels (dQ, dK/dV): tile
+// loads from device memory into shared memory, and a warp-level bf16
+// tensor-core product. The forward has its own Hopper helpers
+// (sm90_common.cuh).
 //
 // Layout contract (checked by the Python wrappers): q, k, v, o, dO are
-// contiguous (BH, N, D) bf16, or for the packed forward contiguous (B, N,
-// heads * D) bf16 read one head at a time; lse and delta are contiguous
-// (BH, Nq) fp32.
+// contiguous (BH, N, D) bf16; lse and delta are contiguous (BH, Nq) fp32.
 // A tile is 64 rows; its head dim D is padded to DP (a multiple of the MMA
 // depth 16) with zero columns in shared memory only, so device memory is
 // never read or written past column D and any N works.
@@ -24,23 +24,20 @@ namespace wmma = nvcuda::wmma;
 constexpr int kRows = 64;  // rows of every q / k tile
 constexpr int kWarps = 4;  // each warp owns 16 rows of the tile
 constexpr int kThreads = kWarps * 32;
-constexpr float kMaskedLogit = -1e30f;  // as the TPU kernel: no inf - inf NaN
 
-// Rows [row0, row0 + 64) of a row-major (n, D) matrix whose rows lie `ld`
-// elements apart (D for a contiguous (BH, N, D) tensor; C = heads * D for one
-// head of a packed (B, N, C) tensor) into a (64, DP) tile. Rows at or past n
-// are zero. When `scale` is given, each value is scaled in fp32 and rounded
-// back to bf16, the TPU kernel's q * scale.
+// Rows [row0, row0 + 64) of a row-major (n, D) matrix into a (64, DP) tile.
+// Rows at or past n are zero. When `scale` is given, each value is scaled in
+// fp32 and rounded back to bf16, the TPU kernel's q * scale.
 template <int D, int DP, bool SCALED>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0,
-                                          int n, float scale, int ld = D) {
-  const bf16* base = src + static_cast<size_t>(row0) * ld;
+                                          int n, float scale) {
+  const bf16* base = src + static_cast<size_t>(row0) * D;
   for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
     bf16 x = __float2bfloat16(0.f);
     if (row0 + r < n) {
-      x = base[static_cast<size_t>(r) * ld + c];
+      x = base[static_cast<size_t>(r) * D + c];
       if (SCALED) x = __float2bfloat16(__bfloat162float(x) * scale);
     }
     dst[r * DP + c] = x;
@@ -91,18 +88,6 @@ __device__ __forceinline__ void warp_mma(float* C, int ldc, const bf16* A,
     }
     wmma::store_matrix_sync(C + n0, acc, ldc, wmma::mem_row_major);
   }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // The head dims of the SD family: 40 (padded to 48), 64, 80 and 160.

@@ -5,178 +5,332 @@
 // and `_attn_kernel_packed` (reached through `_flash_fwd_packed`, the
 // `LECO_FLASH_PACKED=1` route) through `leco_flash_fwd_packed`.
 //
-// What bounds it on this card: at the SD1.5 level-0 shape (N = 4096, D = 40)
-// one (batch*head) does 4*N*N*D = 2.7 GFLOP against 3*N*D*2 = 1 MB of q/k/v,
-// about 2,700 operations per byte, so it is compute-bound (the H100's ridge
-// is near 295). The N x N logits never leave the SM.
+// What bounds it on this card. Per (batch, head) it does 4 * Nq * Nk * D
+// FLOPs on the tensor cores and Nq * Nk exponentials on the special-function
+// units, against 2 * (Nq + Nk) * D bf16 values of q, k, v and o in device
+// memory, so bytes never bound it. At SD2.1's level 0, (BH 20, N 4096, D 64):
+// 85.9 GFLOP, 87 us at 989 TFLOP/s, and 336 M exponentials, 86 us at the
+// H100's ~3.9 T/s (132 SMs x 16 a clock); 42 MB, 13 us at 3.35 TB/s. At
+// SD1.5's level 0, (16, 4096, 40): 43 GFLOP, 43 us, and 268 M exponentials,
+// 69 us: there the exponentials, not the products, are the bound.
 //
-// What the design does about it: the TPU kernels hold the whole K/V of a
-// head (or, packed, of all heads) in VMEM; 227 KB of shared memory cannot (K
-// and V are 2.6 MB at N = 4096, D = 160). So each block takes 64 query rows
-// of one (batch, head) and streams K/V through shared memory in 64-row tiles
-// with an online softmax: a running max m and sum l per row, and an fp32
-// accumulator that is rescaled by exp(m_old - m_new) before each P*V
-// product. Both products run on the tensor cores (WMMA m16n16k16 bf16, fp32
-// accumulation). Each of the 4 warps owns 16 query rows end to end (logits,
-// softmax, accumulator), so only the K/V tile loads need a block-wide
-// barrier.
-//
-// The two layouts share this one kernel: a (batch*head) is `heads` heads of
-// one batch row, and its rows lie `ld` elements apart. The (BH, N, D) layout
-// is heads = 1, ld = D. The packed layout reads q, k and v where the model
-// keeps them, (B, N, C = heads * D): head h of batch b starts at column
-// h * D of batch b's (N, C) matrix and its rows are C apart, so the
-// `(b n (h d) -> (b h) n d)` copies of the 3-d route are not made, and O is
-// written back into (B, N, C) the same way. The TPU kernel pads K/V to a
-// multiple of 128 in HBM and masks the padding; here the tile loads zero
-// rows past Nk and the logits of those columns are masked, which is the
-// same computation without the padding copy. The packed route writes no lse
-// (its backward is plain fp32 PyTorch, as in JAX).
+// What the design does about it:
+// - Both products are warpgroup MMAs (wgmma). A block takes 128 query rows
+//   of one (batch, head): two consumer warpgroups of 64 rows each, and one
+//   producer warpgroup whose first thread keeps TMA loads of K and V tiles
+//   in flight through a 2-stage ring in shared memory (mbarriers: `full`
+//   counts the bytes, `empty` the 8 consumer warps). The producer gives its
+//   registers to the consumers (setmaxnreg 40 / 232).
+// - S = Q * K^T accumulates in registers (Q and K read from 128-byte-swizzled
+//   shared memory, no bank conflicts). The online softmax runs on those
+//   registers: each row lives in 4 threads, so its max needs two shuffles;
+//   its sum is kept per thread and reduced once at the end. P is rounded to
+//   bf16 in registers, whose accumulator layout is wgmma's register layout
+//   for A, and O += P * V reads V from shared memory as an MN-major operand
+//   and accumulates in registers. Nothing goes through shared memory in
+//   fp32. The two consumer warpgroups run the same loop on the same tiles,
+//   so one's exponentials overlap the other's products. (Issuing the next
+//   tile's logits before this tile's softmax as well, with a deeper ring,
+//   ran slower on the H100 at every SD shape tried; see PERF.md.)
+// - Exponentials are exp2 with log2(e) folded into one FMA per logit:
+//   p = 2^(s * log2 e - m * log2 e), which differs from exp(s - m) by a few
+//   ulps (ex2.approx); the max m and LSE = m + ln(l) stay in logit units.
+// - One TMA descriptor covers both layouts: q, k, v and o are each read as a
+//   4-d (B, N, H, D) tensor with strides (N * ld, ld, D, 1) and a box of
+//   (64 columns, 1, rows, 1). The 3-d layout is H = 1, ld = D; the packed
+//   one reads (B, N, C = H * D) in place with ld = C. TMA's zero fill pads D
+//   to the 64-column blocks of shared memory (D 40 -> 64, 80 -> 128, 160 ->
+//   192) and pads the ragged N edge; the O store clips at Nq and D. So the
+//   packed route is bitwise the 3-d route.
+// - Head dims 40, 64, 80, 160. D 40 is padded to 64 in shared memory, not
+//   48: a 128-byte-swizzled row is 64 bf16 wide, so one TMA box fills one
+//   column block and one descriptor layout serves every D. Q * K^T runs only
+//   ceil(D / 16) k16 steps (48 deep at D 40; the padding columns are zero);
+//   P * V runs at width 64 for D 40 and 64 (a whole column block of the
+//   MN-major V operand; a partial block was not tried), 80 and 160
+//   otherwise. Key tiles are 128 wide for D <= 80 and 64 at D 160, so that
+//   Q and the ring fit in shared memory (81 KB at D <= 64, 161 KB at 80,
+//   145 KB at 160).
 //
 // Numerics kept from the TPU kernels: q * scale is rounded to bf16 before
-// the logits; P is rounded to bf16 before P*V while l sums the fp32 P; the
-// normaliser is applied to the (rows, D) output; masked keys (column >= Nk)
-// get the logit -1e30. Outputs: O bf16 and, 3-d only, LSE = m + log(l)
-// (BH, Nq) fp32.
-#include "flash_common.cuh"
+// the logits (once per block, in shared memory, after the Q load); masked
+// keys (column >= Nk) get the logit -1e30 in registers (TMA's zero fill is
+// not a mask); l sums the fp32 P before P is rounded; the normaliser is
+// applied to the (rows, D) output. Outputs: O bf16 and, 3-d only,
+// LSE = m + ln(l) as (BH, Nq) fp32, which the backward kernels read.
+#include "sm90_common.cuh"
 
 namespace leco {
 
-template <int DP>
-constexpr size_t fwd_smem_bytes() {
-  return 3 * kRows * DP * sizeof(bf16)    // q (scaled), k, v tiles
-         + kRows * kRows * sizeof(bf16)   // P
-         + kRows * kRows * sizeof(float)  // logits
-         + kRows * DP * sizeof(float)     // output accumulator
-         + 2 * kRows * sizeof(float);     // m, l
-}
+constexpr float kMaskedLogit = -1e30f;  // as the TPU kernel: no inf - inf NaN
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kQRows = 128;  // query rows of a block: two warpgroups of 64
+constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int kStages = 2;
 
-// grid (ceil(nq / 64), batch * heads); `lse` may be null (packed route)
-template <int D, int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int nq, int nk, float scale,
-                     int heads, int ld) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kRows * DP;
-  bf16* vs = ks + kRows * DP;
-  bf16* ps = vs + kRows * DP;
-  float* ss = reinterpret_cast<float*>(ps + kRows * kRows);
-  float* acc = ss + kRows * kRows;
-  float* row_m = acc + kRows * DP;
-  float* row_l = row_m + kRows;
+template <int D>
+struct FwdShape {
+  static constexpr int kBlocks = (D + 63) / 64;  // 64-column blocks of a row
+  static constexpr int kSteps = (D + 15) / 16;   // k16 steps of Q * K^T
+  static constexpr int kOut = D <= 64 ? 64 : (D + 15) / 16 * 16;  // width of P * V
+  static constexpr int kKeys = D <= 80 ? 128 : 64;  // keys of a K / V tile
+  static constexpr uint32_t kQBytes = kBlocks * kQRows * 128;
+  static constexpr uint32_t kTileBytes = kBlocks * kKeys * 128;  // one K or V tile
+  // + 1024 to align the start to the swizzle pattern
+  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes;
+};
+
+// grid (ceil(nq / 128), batch * heads); `lse` may be null (packed route)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap omap, float* __restrict__ lse,
+                     int nq, int nk, float scale, int heads) {
+  using S = FwdShape<D>;
+  using namespace sm90;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // q, full[s], empty[s]
+
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t q_s = (raw + 1023) & ~1023u;
+  unsigned char* q_ptr = smem_raw + (q_s - raw);
+  const uint32_t q_full = smem_addr(&bars[0]);
+  auto k_tile = [&](int s) { return q_s + S::kQBytes + s * 2 * S::kTileBytes; };
+  auto v_tile = [&](int s) { return k_tile(s) + S::kTileBytes; };
+  auto full = [&](int s) { return smem_addr(&bars[1 + s]); };
+  auto empty = [&](int s) { return smem_addr(&bars[1 + kStages + s]); };
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const int q0 = blockIdx.x * kRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-  q += static_cast<size_t>(b) * nq * ld + h * D;
-  k += static_cast<size_t>(b) * nk * ld + h * D;
-  v += static_cast<size_t>(b) * nk * ld + h * D;
-  o += static_cast<size_t>(b) * nq * ld + h * D;
+  const int q0 = blockIdx.x * kQRows;
+  const int tiles = (nk + S::kKeys - 1) / S::kKeys;
+  const int wg = threadIdx.x / 128;
 
-  load_tile<D, DP, true>(qs, q, q0, nq, scale, ld);
-  zero_pad_cols<D, DP>(qs);
-  zero_pad_cols<D, DP>(ks);
-  zero_pad_cols<D, DP>(vs);
-  for (int i = threadIdx.x; i < kRows * DP; i += kThreads) acc[i] = 0.f;
-  for (int i = threadIdx.x; i < kRows; i += kThreads) {
-    row_m[i] = -__int_as_float(0x7f800000);  // -inf: the first alpha is 0
-    row_l[i] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival from each consumer warp
+    }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  for (int k0 = 0; k0 < nk; k0 += kRows) {
-    load_tile<D, DP, false>(ks, k, k0, nk, 1.f, ld);
-    load_tile<D, DP, false>(vs, v, k0, nk, 1.f, ld);
-    __syncthreads();
-
-    // logits of this warp's 16 rows against the 64 keys of the tile
-    warp_mma<DP, kRows, true, false>(ss + r0 * kRows, kRows, qs + r0 * DP, DP,
-                                     ks, DP);
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      float s0 = ss[r * kRows + lane];
-      float s1 = ss[r * kRows + lane + 32];
-      if (k0 + lane >= nk) s0 = kMaskedLogit;
-      if (k0 + lane + 32 >= nk) s1 = kMaskedLogit;
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      ps[r * kRows + lane] = __float2bfloat16(p0);
-      ps[r * kRows + lane + 32] = __float2bfloat16(p1);
-      const float alpha = expf(m_old - m_new);
-      const float sum = warp_sum(p0 + p1);
-      for (int c = lane; c < DP; c += 32) acc[r * DP + c] *= alpha;
-      if (lane == 0) {
-        row_m[r] = m_new;
-        row_l[r] = row_l[r] * alpha + sum;
+  if (wg == 0) {  // producer
+    release_registers<40>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, S::kQBytes);
+      for (int blk = 0; blk < S::kBlocks; ++blk)
+        tma_load_4d(q_s + blk * kQRows * 128, &qmap, q_full, 64 * blk, h, q0, b);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(empty(s), ((j / kStages) - 1) & 1);
+        mbar_expect_tx(full(s), 2 * S::kTileBytes);
+        for (int blk = 0; blk < S::kBlocks; ++blk) {
+          tma_load_4d(k_tile(s) + blk * S::kKeys * 128, &kmap, full(s), 64 * blk, h,
+                      j * S::kKeys, b);
+          tma_load_4d(v_tile(s) + blk * S::kKeys * 128, &vmap, full(s), 64 * blk, h,
+                      j * S::kKeys, b);
+        }
       }
     }
-    __syncwarp();
-    warp_mma<kRows, DP, false, true>(acc + r0 * DP, DP, ps + r0 * kRows, kRows,
-                                     vs, DP);
-    __syncthreads();  // the next tile load overwrites ks / vs
+    return;
   }
 
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int row = q0 + r;
-    if (row >= nq) break;
-    const float l = row_l[r];
-    for (int c = lane; c < D; c += 32)
-      o[static_cast<size_t>(row) * ld + c] = __float2bfloat16(acc[r * DP + c] / l);
-    if (lse != nullptr && lane == 0)
-      lse[static_cast<size_t>(bh) * nq + row] = row_m[r] + logf(l);
+  // consumers: warpgroup cw owns query rows 64 * cw .. 64 * cw + 63 of the block
+  claim_registers<232>();
+  const int cw = wg - 1;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int r_lo = (t / 32) * 16 + lane / 4;  // this thread's rows: r_lo and r_lo + 8
+  const int col = 2 * (lane % 4);  // its first column in each 8-column chunk
+  const uint32_t q_rows = q_s + cw * 64 * 128;
+
+  // q * scale rounded to bf16, in place over this warpgroup's rows
+  mbar_wait(q_full, 0);
+  for (int i = t; i < S::kBlocks * 64 * 8; i += 128) {
+    uint4* chunk = reinterpret_cast<uint4*>(q_ptr + (i / 512) * kQRows * 128 + cw * 64 * 128 +
+                                            (i % 512) * 16);
+    uint4 x = *chunk;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[e]));
+      w[e] = pack_bf16(f.x * scale, f.y * scale);
+    }
+    *chunk = x;
+  }
+  fence_proxy_async();
+  named_barrier(1 + cw, 128);
+
+  float o[S::kOut / 2];
+#pragma unroll
+  for (int i = 0; i < S::kOut / 2; ++i) o[i] = 0.f;
+  float m_lo = -__int_as_float(0x7f800000), m_hi = m_lo;  // -inf: the first rescale is 0
+  float l_lo = 0.f, l_hi = 0.f;  // this thread's part of each row's sum
+
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % kStages;
+    mbar_wait(full(s), (j / kStages) & 1);
+
+    float sc[S::kKeys / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < S::kSteps; ++k)  // 16 columns: column block k / 4, 32 bytes a step
+      wgmma_ss<S::kKeys>(sc, smem_desc(q_rows + (k / 4) * kQRows * 128 + (k % 4) * 32, 16, 1024),
+                         smem_desc(k_tile(s) + (k / 4) * S::kKeys * 128 + (k % 4) * 32, 16, 1024),
+                         k > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers<S::kKeys / 2>(sc);
+
+    const int k0 = j * S::kKeys;
+    if (k0 + S::kKeys > nk) {
+#pragma unroll
+      for (int c = 0; c < S::kKeys / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (k0 + 8 * c + col + e >= nk) sc[4 * c + e] = sc[4 * c + 2 + e] = kMaskedLogit;
+    }
+
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int c = 0; c < S::kKeys / 8; ++c) {
+      mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * c], sc[4 * c + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * c + 2], sc[4 * c + 3]));
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, x));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, x));
+    }
+    const float alpha_lo = exp2_approx((m_lo - mx_lo) * kLog2e);
+    const float alpha_hi = exp2_approx((m_hi - mx_hi) * kLog2e);
+    const float ms_lo = mx_lo * kLog2e, ms_hi = mx_hi * kLog2e;
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+
+    uint32_t p[S::kKeys / 4];  // P in bf16: the A operand of P * V
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int c = 0; c < S::kKeys / 8; ++c) {
+      const float p0 = exp2_approx(fmaf(sc[4 * c], kLog2e, -ms_lo));
+      const float p1 = exp2_approx(fmaf(sc[4 * c + 1], kLog2e, -ms_lo));
+      const float p2 = exp2_approx(fmaf(sc[4 * c + 2], kLog2e, -ms_hi));
+      const float p3 = exp2_approx(fmaf(sc[4 * c + 3], kLog2e, -ms_hi));
+      sum_lo += p0 + p1;
+      sum_hi += p2 + p3;
+      p[2 * c] = pack_bf16(p0, p1);
+      p[2 * c + 1] = pack_bf16(p2, p3);
+    }
+    l_lo = l_lo * alpha_lo + sum_lo;
+    l_hi = l_hi * alpha_hi + sum_hi;
+#pragma unroll
+    for (int c = 0; c < S::kOut / 8; ++c) {
+      o[4 * c] *= alpha_lo;
+      o[4 * c + 1] *= alpha_lo;
+      o[4 * c + 2] *= alpha_hi;
+      o[4 * c + 3] *= alpha_hi;
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < S::kKeys / 16; ++kk)
+      wgmma_rs_mn<S::kOut>(o, &p[4 * kk],
+                           smem_desc(v_tile(s) + kk * 16 * 128, S::kKeys * 128, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers<S::kOut / 2>(o);
+    if (lane == 0) mbar_arrive(empty(s));  // this warp is done with stage s
+  }
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, x);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
+  }
+
+  // O / l into this warpgroup's Q rows (every warp is past its last Q read),
+  // in the swizzled layout, then one TMA store per column block
+  named_barrier(1 + cw, 128);
+#pragma unroll
+  for (int c = 0; c < S::kOut / 8; ++c) {
+    const int blk = c / 8;
+    unsigned char* row = q_ptr + blk * kQRows * 128 + (cw * 64 + r_lo) * 128;
+    const int at = (((c % 8) ^ (r_lo % 8)) * 16) + col * 2;
+    *reinterpret_cast<uint32_t*>(row + at) = pack_bf16(o[4 * c] / l_lo, o[4 * c + 1] / l_lo);
+    *reinterpret_cast<uint32_t*>(row + 8 * 128 + at) =
+        pack_bf16(o[4 * c + 2] / l_hi, o[4 * c + 3] / l_hi);
+  }
+  if (lse != nullptr && lane % 4 == 0) {
+    const int row = q0 + cw * 64 + r_lo;
+    if (row < nq) lse[static_cast<size_t>(bh) * nq + row] = m_lo + logf(l_lo);
+    if (row + 8 < nq) lse[static_cast<size_t>(bh) * nq + row + 8] = m_hi + logf(l_hi);
+  }
+  fence_proxy_async();
+  named_barrier(1 + cw, 128);
+  if (t == 0) {
+    for (int blk = 0; blk < S::kBlocks; ++blk)
+      tma_store_4d(&omap, q_rows + blk * kQRows * 128, 64 * blk, h, q0 + cw * 64, b);
+    tma_store_wait();
   }
 }
 
-template <int D, int DP>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int bh, int nq, int nk, float scale,
-                       int heads, int ld, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<DP>();
-  auto kernel = flash_fwd_kernel<D, DP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int batch, int heads, int nq, int nk, int ld, float scale,
+                       cudaStream_t stream) {
+  using S = FwdShape<D>;
+  CUtensorMap qmap, kmap, vmap, omap;
+  cudaError_t err = sm90::encode_bnhd(&qmap, q, batch, nq, heads, D, ld, kQRows);
+  if (err == cudaSuccess) err = sm90::encode_bnhd(&kmap, k, batch, nk, heads, D, ld, S::kKeys);
+  if (err == cudaSuccess) err = sm90::encode_bnhd(&vmap, v, batch, nk, heads, D, ld, S::kKeys);
+  if (err == cudaSuccess) err = sm90::encode_bnhd(&omap, o, batch, nq, heads, D, ld, 64);
   if (err != cudaSuccess) return err;
-  dim3 grid((nq + kRows - 1) / kRows, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), nq, nk, scale, heads, ld);
+  auto kernel = flash_fwd_kernel<D>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(S::kSmem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((nq + kQRows - 1) / kQRows, batch * heads);
+  kernel<<<grid, kThreads, S::kSmem, stream>>>(qmap, kmap, vmap, omap, lse, nq, nk, scale, heads);
   return cudaGetLastError();
 }
 
 }  // namespace leco
 
+// The head dims of the SD family; cudaErrorInvalidValue for any other D.
+#define LECO_FWD_DISPATCH(d, LAUNCH) \
+  switch (d) {                       \
+    case 40: return LAUNCH(40);      \
+    case 64: return LAUNCH(64);      \
+    case 80: return LAUNCH(80);      \
+    case 160: return LAUNCH(160);    \
+    default: return cudaErrorInvalidValue; \
+  }
+
 // (BH, N, D) layout: o (BH, Nq, D), lse (BH, Nq)
-extern "C" int leco_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int bh, int nq, int nk, int d,
-                              float scale, void* stream) {
+extern "C" int leco_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int bh, int nq, int nk, int d, float scale, void* stream) {
   if (bh <= 0 || nq <= 0 || nk <= 0 || bh > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LECO_FWD(D, DP) \
-  leco::launch_fwd<D, DP>(q, k, v, o, lse, bh, nq, nk, scale, 1, D, s)
-  LECO_DISPATCH_HEAD_DIM(d, LECO_FWD)
+#define LECO_FWD(D) \
+  leco::launch_fwd<D>(q, k, v, o, static_cast<float*>(lse), bh, 1, nq, nk, D, scale, s)
+  LECO_FWD_DISPATCH(d, LECO_FWD)
 #undef LECO_FWD
 }
 
 // packed layout: q, o (B, Nq, C), k, v (B, Nk, C) with C = heads * D; no lse
-extern "C" int leco_flash_fwd_packed(const void* q, const void* k, const void* v,
-                                     void* o, int b, int heads, int nq, int nk,
-                                     int c, float scale, void* stream) {
-  if (b <= 0 || heads <= 0 || nq <= 0 || nk <= 0 || c % heads != 0 ||
-      b * heads > 65535)
+extern "C" int leco_flash_fwd_packed(const void* q, const void* k, const void* v, void* o, int b,
+                                     int heads, int nq, int nk, int c, float scale,
+                                     void* stream) {
+  if (b <= 0 || heads <= 0 || nq <= 0 || nk <= 0 || c % heads != 0 || b * heads > 65535)
     return cudaErrorInvalidValue;
   const int d = c / heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LECO_FWD(D, DP) \
-  leco::launch_fwd<D, DP>(q, k, v, o, nullptr, b * heads, nq, nk, scale, heads, c, s)
-  LECO_DISPATCH_HEAD_DIM(d, LECO_FWD)
+#define LECO_FWD(D) leco::launch_fwd<D>(q, k, v, o, nullptr, b, heads, nq, nk, c, scale, s)
+  LECO_FWD_DISPATCH(d, LECO_FWD)
 #undef LECO_FWD
 }

@@ -85,20 +85,14 @@ def packed_enabled() -> bool:
     return os.environ.get("LECO_FLASH_PACKED") == "1"
 
 
-def _check_cuda(name: str, tensors: dict, shapes: dict) -> None:
+def _check_cuda(name: str, tensors: dict, shapes: dict, aligned: bool = False) -> None:
+    """`aligned`: the forward's TMA tensor maps need 16-byte starts."""
     dtype = tensors["q3"].dtype
     if dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: dtype {dtype} is not a kernel dtype {KERNEL_DTYPES}")
     for key, t in tensors.items():
         want_dtype = torch.float32 if key in ("lse", "delta") else dtype
-        if not t.is_cuda or t.device != tensors["q3"].device:
-            raise ValueError(f"{name}: {key} is not on {tensors['q3'].device}")
-        if t.dtype != want_dtype:
-            raise TypeError(f"{name}: {key} has dtype {t.dtype}, want {want_dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} is not contiguous")
-        if tuple(t.shape) != shapes[key]:
-            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, want {shapes[key]}")
+        launch.check(name, key, t, want_dtype, shapes[key], tensors["q3"].device, aligned)
     d = tensors["q3"].shape[-1]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} is not one of {KERNEL_HEAD_DIMS}")
@@ -219,7 +213,7 @@ def attn_fwd(q3, k3, v3, scale: float):
     if not q3.is_cuda:
         return attn_fwd_plain(q3, k3, v3, scale)
     bh, nq, nk, d, shapes = _shapes(q3, k3)
-    _check_cuda("attn_fwd", {"q3": q3, "k3": k3, "v3": v3}, shapes)
+    _check_cuda("attn_fwd", {"q3": q3, "k3": k3, "v3": v3}, shapes, aligned=True)
     from leco_tpu_torch.kernels.build import library
 
     o = torch.empty_like(q3)
@@ -294,7 +288,7 @@ def attn_fwd_packed(q2, k2, v2, heads: int, scale: float):
                          f"of {KERNEL_HEAD_DIMS}")
     for key, t, shape in (("q2", q2, (b, nq, c)), ("k2", k2, (b, nk, c)),
                           ("v2", v2, (b, nk, c))):
-        launch.check("attn_fwd_packed", key, t, q2.dtype, shape, q2.device)
+        launch.check("attn_fwd_packed", key, t, q2.dtype, shape, q2.device, aligned=True)
     from leco_tpu_torch.kernels.build import library
 
     o = torch.empty_like(q2)
