@@ -8,10 +8,13 @@ Phases, each printing its result on a line of its own:
   2. build   — nvcc builds every kernel from leco_tpu_torch/kernels/csrc
                (sm_90a), one process per source;
   3. kernels — each flash-attention kernel against its plain PyTorch version
-               in bf16 at the training path's shapes (SD1.5 and SD2.1), with
-               times of the kernel, its plain version and
+               in bf16 at the training path's shapes (SD1.5 and SD2.1), each
+               error limit beside a control that must fail it (the plain
+               version without a key tile, or for dk and dv without a query
+               tile), with times of the kernel, its plain version and
                F.scaled_dot_product_attention (the library's call, which the
-               port never makes), and each shape's roofline bound; the
+               port never makes; its backward at both level-0 target
+               shapes), and each shape's roofline bound; the
                packed-layout forward (LECO_FLASH_PACKED=1) at the SD2.1 and
                SD1.5 512 px self-attention shapes and a masked ragged key
                count, timed the same way and against the 3-d route with its
@@ -114,12 +117,22 @@ TIMED_SHAPE = {
 # RTOL_O x max|ref| (2.5-5 ulps) and never above ATOL_O, the bf16 bound of
 # tests/test_flash_attention.py. The control: the plain version without its
 # last DROPPED_KEYS keys, what a kernel that loses a key tile computes, must
-# fail that limit. LSE is fp32; gradients relative to their size
+# fail that limit. LSE is fp32. Gradients: bf16 outputs of fp32 sums over
+# bf16 dS (and P^T); the sound error is a bf16 ulp of the largest gradient
+# (at most 2^-7 of max|ref|) plus what a flipped dS rounding moves, so dq,
+# dk and dv are held to RTOL_GRAD x max|ref|. The controls, what a kernel
+# that loses a tile computes, must fail it: dq over all keys but the last
+# DROPPED_KEYS, dk and dv without the last DROPPED_QUERIES query rows (of q,
+# dO, lse and delta)
 ATOL_O = 2e-2
 RTOL_O = 2e-2
 DROPPED_KEYS = 64
+DROPPED_QUERIES = 64
 ATOL_LSE = 1e-3
 RTOL_GRAD = 2e-2
+# where one SDPA backward is timed beside the dq and dkv kernels: SD1.5's and
+# SD2.1's level 0 at the target's batch
+BWD_LIBRARY_SHAPES = ((8, 4096, 4096, 40), (10, 4096, 4096, 64))
 # the whole UNet through the kernels vs through plain attention, bf16:
 # relative to the output's largest magnitude
 RTOL_UNET = 5e-2
@@ -272,6 +285,21 @@ def check_o(o, o_ref, o_dropped, shape) -> dict:
     return {"o": err, "o_limit": limit, "o_control": control}
 
 
+def check_grads(got: dict, ref: dict, control: dict, shape) -> dict:
+    """Hold dq, dk and dv to RTOL_GRAD x max|ref|, and check that each limit
+    fails its control -> the errors, the limits and the controls' errors."""
+    err, limit, control_err = {}, {}, {}
+    for key in ("dq", "dk", "dv"):
+        want = ref[key].float()
+        limit[key] = RTOL_GRAD * want.abs().max().item()
+        err[key] = (got[key].float() - want).abs().max().item()
+        control_err[key] = (control[key].float() - want).abs().max().item()
+        check(err[key] <= limit[key], f"{key} error {err[key]} > {limit[key]} at {shape}")
+        check(control_err[key] > limit[key],
+              f"the {key} limit {limit[key]} passes its control ({control_err[key]}) at {shape}")
+    return {"err": err, "grad_limit": limit, "grad_control": control_err}
+
+
 def time_ms(fn, warmup: int = 2, iters: int = 7) -> float:
     """Median of `iters` CUDA-event timings, after a warm-up, each of
     TIME_REPS calls back to back divided by TIME_REPS: the card's time per
@@ -367,19 +395,20 @@ def phase_kernels(device) -> dict:
         def err(a, b):
             return (a.float() - b.float()).abs().max().item()
 
-        def size(a):
-            return a.float().abs().max().item()
-
         o_dropped, _ = fa.attn_fwd_plain(q, k[:, :-DROPPED_KEYS], v[:, :-DROPPED_KEYS], scale)
         o_check = check_o(o, o_ref, o_dropped, (bh, nq, nk, d))
-        e = {
-            "o": o_check["o"], "lse": err(lse, lse_ref),
-            "dq": err(dq, dq_ref), "dk": err(dk, dk_ref), "dv": err(dv, dv_ref),
-        }
+        dq_dropped = fa.attn_bwd_dq_plain(q, k[:, :-DROPPED_KEYS], v[:, :-DROPPED_KEYS], g,
+                                          lse_ref, delta, scale)
+        kept = slice(0, nq - DROPPED_QUERIES)
+        dk_dropped, dv_dropped = fa.attn_bwd_dkv_plain(q[:, kept], k, v, g[:, kept],
+                                                       lse_ref[:, kept], delta[:, kept], scale)
+        grads = check_grads({"dq": dq, "dk": dk, "dv": dv},
+                            {"dq": dq_ref, "dk": dk_ref, "dv": dv_ref},
+                            {"dq": dq_dropped, "dk": dk_dropped, "dv": dv_dropped},
+                            (bh, nq, nk, d))
+        del dq_dropped, dk_dropped, dv_dropped
+        e = {"o": o_check["o"], "lse": err(lse, lse_ref), **grads["err"]}
         check(e["lse"] <= ATOL_LSE, f"LSE error {e['lse']} > {ATOL_LSE} at {(bh, nq, nk, d)}")
-        for key, ref in (("dq", dq_ref), ("dk", dk_ref), ("dv", dv_ref)):
-            check(e[key] <= RTOL_GRAD * size(ref),
-                  f"{key} error {e[key]} > {RTOL_GRAD} x {size(ref)} at {(bh, nq, nk, d)}")
         worst["attn_fwd"] = max(worst["attn_fwd"], e["o"], e["lse"])
         worst["attn_bwd_dq"] = max(worst["attn_bwd_dq"], e["dq"])
         worst["attn_bwd_dkv"] = max(worst["attn_bwd_dkv"], e["dk"], e["dv"])
@@ -399,22 +428,25 @@ def phase_kernels(device) -> dict:
         library = {"attn_fwd": time_ms(
             lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))}
         fwd_second_turn = time_ms(lambda: fa.attn_fwd(q, k, v, scale))
-        if (bh, nq, nk, d) == TIMED_SHAPE["attn_bwd_dq"] == TIMED_SHAPE["attn_bwd_dkv"]:
+        pair = {}
+        if (bh, nq, nk, d) in BWD_LIBRARY_SHAPES:
             # one SDPA backward computes what the dq and dkv kernels compute together
             qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
             out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
             library["attn_bwd_dq"] = library["attn_bwd_dkv"] = time_ms(
                 lambda: torch.autograd.grad(out, (qg, kg, vg), g[None], retain_graph=True))
+            pair = {"bwd_pair_ms": ms["attn_bwd_dq"][0] + ms["attn_bwd_dkv"][0]}
             del qg, kg, vg, out
         for name, shape in TIMED_SHAPE.items():
             if (bh, nq, nk, d) == shape:
                 timed[name] = (*ms[name], library.get(name))
         print(json.dumps({"shape": [bh, nq, nk, d], "max_abs_err": e,
                           "o_limit": o_check["o_limit"], "o_control": o_check["o_control"],
+                          "grad_limit": grads["grad_limit"], "grad_control": grads["grad_control"],
                           "ms": {n: t[0] for n, t in ms.items()},
                           "plain_ms": {n: t[1] for n, t in ms.items()},
                           "library_ms": library,
-                          "attn_fwd_second_turn_ms": fwd_second_turn,
+                          "attn_fwd_second_turn_ms": fwd_second_turn, **pair,
                           "bound_ms": {n: roofline.kernel_bound(n, (bh, nq, nk, d))["bound_ms"]
                                        for n in FLASH}}), flush=True)
         del q, k, v, g, o, o_ref, o_dropped, dq, dq_ref, dk, dk_ref, dv, dv_ref

@@ -33,7 +33,7 @@
 // N tiles, and any Cin, are masked. This is a simple first kernel: the nine
 // tap tiles are re-read from L1/L2 rather than shared as one halo tile, and
 // no stage is pipelined.
-#include "flash_common.cuh"
+#include "wmma_common.cuh"
 
 namespace leco {
 namespace conv {

@@ -63,7 +63,6 @@
 namespace leco {
 
 constexpr float kMaskedLogit = -1e30f;  // as the TPU kernel: no inf - inf NaN
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kQRows = 128;  // query rows of a block: two warpgroups of 64
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kStages = 2;
@@ -143,26 +142,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   // consumers: warpgroup cw owns query rows 64 * cw .. 64 * cw + 63 of the block
   claim_registers<232>();
   const int cw = wg - 1;
-  const int t = threadIdx.x % 128;
-  const int lane = t % 32;
-  const int r_lo = (t / 32) * 16 + lane / 4;  // this thread's rows: r_lo and r_lo + 8
-  const int col = 2 * (lane % 4);  // its first column in each 8-column chunk
+  const Fragment fr;
   const uint32_t q_rows = q_s + cw * 64 * 128;
 
   // q * scale rounded to bf16, in place over this warpgroup's rows
   mbar_wait(q_full, 0);
-  for (int i = t; i < S::kBlocks * 64 * 8; i += 128) {
-    uint4* chunk = reinterpret_cast<uint4*>(q_ptr + (i / 512) * kQRows * 128 + cw * 64 * 128 +
-                                            (i % 512) * 16);
-    uint4 x = *chunk;
-    uint32_t* w = reinterpret_cast<uint32_t*>(&x);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[e]));
-      w[e] = pack_bf16(f.x * scale, f.y * scale);
-    }
-    *chunk = x;
-  }
+  scale_rows_bf16<S::kBlocks>(q_ptr, kQRows, cw * 64, 64, scale, fr.t, 128);
   fence_proxy_async();
   named_barrier(1 + cw, 128);
 
@@ -193,7 +178,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int c = 0; c < S::kKeys / 8; ++c)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          if (k0 + 8 * c + col + e >= nk) sc[4 * c + e] = sc[4 * c + 2 + e] = kMaskedLogit;
+          if (k0 + 8 * c + fr.col + e >= nk) sc[4 * c + e] = sc[4 * c + 2 + e] = kMaskedLogit;
     }
 
     float mx_lo = m_lo, mx_hi = m_hi;
@@ -244,7 +229,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_commit();
     wgmma_wait<0>();
     fence_registers<S::kOut / 2>(o);
-    if (lane == 0) mbar_arrive(empty(s));  // this warp is done with stage s
+    if (fr.lane == 0) mbar_arrive(empty(s));  // this warp is done with stage s
   }
 
 #pragma unroll
@@ -256,23 +241,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   // O / l into this warpgroup's Q rows (every warp is past its last Q read),
   // in the swizzled layout, then one TMA store per column block
   named_barrier(1 + cw, 128);
-#pragma unroll
-  for (int c = 0; c < S::kOut / 8; ++c) {
-    const int blk = c / 8;
-    unsigned char* row = q_ptr + blk * kQRows * 128 + (cw * 64 + r_lo) * 128;
-    const int at = (((c % 8) ^ (r_lo % 8)) * 16) + col * 2;
-    *reinterpret_cast<uint32_t*>(row + at) = pack_bf16(o[4 * c] / l_lo, o[4 * c + 1] / l_lo);
-    *reinterpret_cast<uint32_t*>(row + 8 * 128 + at) =
-        pack_bf16(o[4 * c + 2] / l_hi, o[4 * c + 3] / l_hi);
-  }
-  if (lse != nullptr && lane % 4 == 0) {
-    const int row = q0 + cw * 64 + r_lo;
+  stage_fragment<S::kOut>(q_ptr, kQRows, cw * 64, o,
+                          [&](float x, int hi) { return x / (hi ? l_hi : l_lo); });
+  if (lse != nullptr && fr.lane % 4 == 0) {
+    const int row = q0 + cw * 64 + fr.r_lo;
     if (row < nq) lse[static_cast<size_t>(bh) * nq + row] = m_lo + logf(l_lo);
     if (row + 8 < nq) lse[static_cast<size_t>(bh) * nq + row + 8] = m_hi + logf(l_hi);
   }
   fence_proxy_async();
   named_barrier(1 + cw, 128);
-  if (t == 0) {
+  if (fr.t == 0) {
     for (int blk = 0; blk < S::kBlocks; ++blk)
       tma_store_4d(&omap, q_rows + blk * kQRows * 128, 64 * blk, h, q0 + cw * 64, b);
     tma_store_wait();
@@ -301,16 +279,6 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
 
 }  // namespace leco
 
-// The head dims of the SD family; cudaErrorInvalidValue for any other D.
-#define LECO_FWD_DISPATCH(d, LAUNCH) \
-  switch (d) {                       \
-    case 40: return LAUNCH(40);      \
-    case 64: return LAUNCH(64);      \
-    case 80: return LAUNCH(80);      \
-    case 160: return LAUNCH(160);    \
-    default: return cudaErrorInvalidValue; \
-  }
-
 // (BH, N, D) layout: o (BH, Nq, D), lse (BH, Nq)
 extern "C" int leco_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int bh, int nq, int nk, int d, float scale, void* stream) {
@@ -318,7 +286,7 @@ extern "C" int leco_flash_fwd(const void* q, const void* k, const void* v, void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LECO_FWD(D) \
   leco::launch_fwd<D>(q, k, v, o, static_cast<float*>(lse), bh, 1, nq, nk, D, scale, s)
-  LECO_FWD_DISPATCH(d, LECO_FWD)
+  LECO_DISPATCH_HEAD_DIM(d, LECO_FWD)
 #undef LECO_FWD
 }
 
@@ -331,6 +299,6 @@ extern "C" int leco_flash_fwd_packed(const void* q, const void* k, const void* v
   const int d = c / heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LECO_FWD(D) leco::launch_fwd<D>(q, k, v, o, nullptr, b, heads, nq, nk, c, scale, s)
-  LECO_FWD_DISPATCH(d, LECO_FWD)
+  LECO_DISPATCH_HEAD_DIM(d, LECO_FWD)
 #undef LECO_FWD
 }

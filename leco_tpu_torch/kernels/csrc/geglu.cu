@@ -28,7 +28,7 @@
 // bf16 with fp32 accumulation; the bias, the erf polynomial and the product
 // run in fp32 on the accumulators, with one rounding to bf16. Ragged M is
 // masked. A simple first kernel: no pipelining of the K stages.
-#include "flash_common.cuh"
+#include "wmma_common.cuh"
 
 namespace leco {
 namespace geglu {

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash-attention forward: TMA tile
-// loads and stores through a CUtensorMap, mbarriers, named barriers,
-// register rebalancing, and warpgroup MMAs (wgmma) whose shared-memory
-// operands are 128-byte swizzled.
+// Hopper (sm_90a) building blocks of the flash-attention kernels (forward,
+// dQ, dK/dV): TMA tile loads and stores through a CUtensorMap, mbarriers,
+// named barriers, register rebalancing, warpgroup MMAs (wgmma) whose
+// shared-memory operands are 128-byte swizzled, and the moves between an
+// accumulator fragment and such a tile.
 //
 // Shared-memory tile layout (what TMA writes under CU_TENSOR_MAP_SWIZZLE_128B
 // and what the descriptors of `smem_desc` read): a (rows, 64 * blocks) bf16
@@ -9,6 +10,13 @@
 // i * rows * 128 bytes, row r of a block at r * 128, and the 16-byte chunk c
 // of a row lies at chunk position c ^ (r % 8). Every block starts on a
 // 1024-byte boundary, where the swizzle pattern (8 rows of 128 bytes) begins.
+//
+// Accumulator fragment of a 64 x N wgmma (fp32, N / 2 floats a thread):
+// thread t of the warpgroup holds rows r_lo = 16 * (t / 32) + (t % 32) / 4
+// and r_lo + 8; its floats 4c, 4c + 1 are row r_lo, columns 8c + col and
+// 8c + col + 1 with col = 2 * (t % 4), and 4c + 2, 4c + 3 the same columns
+// of row r_lo + 8. Packed to bf16 pairs in that order, 16 columns of it
+// (4 registers) are wgmma's A operand from registers.
 #pragma once
 
 #include <cuda.h>
@@ -18,6 +26,9 @@
 #include <cstdint>
 
 namespace leco {
+
+constexpr float kLog2e = 1.4426950408889634f;
+
 namespace sm90 {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -123,6 +134,60 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ---- tiles in shared memory ------------------------------------------------
+
+// This thread's place in a warpgroup's accumulator fragment.
+struct Fragment {
+  int t;     // thread of the warpgroup, 0..127
+  int lane;
+  int r_lo;  // its rows: r_lo and r_lo + 8
+  int col;   // its first column in each 8-column chunk
+  __device__ __forceinline__ Fragment()
+      : t(threadIdx.x % 128),
+        lane(threadIdx.x % 32),
+        r_lo((threadIdx.x % 128) / 32 * 16 + (threadIdx.x % 32) / 4),
+        col(2 * (threadIdx.x % 4)) {}
+};
+
+// x * scale rounded to bf16, in place, over rows [row0, row0 + rows) of a
+// (rows_total, 64 * BLOCKS) tile (the TPU kernels' bf16(q * scale)); thread
+// `t` of `threads` takes every threads-th 16-byte chunk
+template <int BLOCKS>
+__device__ __forceinline__ void scale_rows_bf16(unsigned char* tile, int rows_total, int row0,
+                                                int rows, float scale, int t, int threads) {
+  const int chunks = rows * 8;  // 16-byte chunks of one column block's rows
+  for (int i = t; i < BLOCKS * chunks; i += threads) {
+    uint4* chunk = reinterpret_cast<uint4*>(tile + (i / chunks) * rows_total * 128 +
+                                            row0 * 128 + (i % chunks) * 16);
+    uint4 x = *chunk;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[e]));
+      w[e] = pack_bf16(f.x * scale, f.y * scale);
+    }
+    *chunk = x;
+  }
+}
+
+// A 64 x N accumulator fragment, each value through f(value, half) (half 0:
+// row r_lo, 1: row r_lo + 8) and rounded to bf16, into rows [row0, row0 + 64)
+// (row0 a multiple of 8) of a (rows_total, 64 * blocks) tile in the swizzled
+// layout that a TMA store reads
+template <int N, typename F>
+__device__ __forceinline__ void stage_fragment(unsigned char* tile, int rows_total, int row0,
+                                               const float* acc, F f) {
+  const Fragment fr;
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c) {
+    unsigned char* row = tile + (c / 8) * rows_total * 128 + (row0 + fr.r_lo) * 128;
+    const int at = (((c % 8) ^ (fr.r_lo % 8)) * 16) + fr.col * 2;
+    *reinterpret_cast<uint32_t*>(row + at) = pack_bf16(f(acc[4 * c], 0), f(acc[4 * c + 1], 0));
+    *reinterpret_cast<uint32_t*>(row + 8 * 128 + at) =
+        pack_bf16(f(acc[4 * c + 2], 1), f(acc[4 * c + 3], 1));
+  }
+}
+
 // ---- wgmma -----------------------------------------------------------------
 
 // Descriptor of a 128-byte-swizzled operand at shared address `addr`. For a
@@ -166,6 +231,18 @@ __device__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int accumulate);
 // laid out as a 64 x 16 accumulator fragment) * b (16 x N, MN-major, shared).
 template <int N>
 __device__ void wgmma_rs_mn(float* d, const uint32_t* a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a, uint64_t b, int accumulate) {
@@ -309,3 +386,13 @@ inline cudaError_t encode_bnhd(CUtensorMap* map, const void* ptr, int b, int n, 
 
 }  // namespace sm90
 }  // namespace leco
+
+// The head dims of the SD family; cudaErrorInvalidValue for any other D.
+#define LECO_DISPATCH_HEAD_DIM(d, LAUNCH)  \
+  switch (d) {                             \
+    case 40: return LAUNCH(40);            \
+    case 64: return LAUNCH(64);            \
+    case 80: return LAUNCH(80);            \
+    case 160: return LAUNCH(160);          \
+    default: return cudaErrorInvalidValue; \
+  }

@@ -85,14 +85,16 @@ def packed_enabled() -> bool:
     return os.environ.get("LECO_FLASH_PACKED") == "1"
 
 
-def _check_cuda(name: str, tensors: dict, shapes: dict, aligned: bool = False) -> None:
-    """`aligned`: the forward's TMA tensor maps need 16-byte starts."""
+def _check_cuda(name: str, tensors: dict, shapes: dict) -> None:
+    """Every kernel reads q, k, v (and dO) and writes its outputs through TMA
+    tensor maps, which need 16-byte starts."""
     dtype = tensors["q3"].dtype
     if dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: dtype {dtype} is not a kernel dtype {KERNEL_DTYPES}")
     for key, t in tensors.items():
         want_dtype = torch.float32 if key in ("lse", "delta") else dtype
-        launch.check(name, key, t, want_dtype, shapes[key], tensors["q3"].device, aligned)
+        launch.check(name, key, t, want_dtype, shapes[key], tensors["q3"].device,
+                     aligned=True)
     d = tensors["q3"].shape[-1]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} is not one of {KERNEL_HEAD_DIMS}")
@@ -213,7 +215,7 @@ def attn_fwd(q3, k3, v3, scale: float):
     if not q3.is_cuda:
         return attn_fwd_plain(q3, k3, v3, scale)
     bh, nq, nk, d, shapes = _shapes(q3, k3)
-    _check_cuda("attn_fwd", {"q3": q3, "k3": k3, "v3": v3}, shapes, aligned=True)
+    _check_cuda("attn_fwd", {"q3": q3, "k3": k3, "v3": v3}, shapes)
     from leco_tpu_torch.kernels.build import library
 
     o = torch.empty_like(q3)

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (flash attention, 3-d and packed; the fused conv,
-GroupNorm-conv, GroupNorm and GEGLU kernels) against their plain versions,
-on the card.
+"""The port's CUDA kernels (flash attention: the forward, 3-d and packed,
+and the dQ and dK/dV backward pair; the fused conv, GroupNorm-conv,
+GroupNorm and GEGLU kernels) against their plain versions, on the card.
 Marked `cuda`: without a CUDA device every test here skips. Run them on a
 GPU machine with
 
@@ -90,6 +90,55 @@ def test_fwd_core_matches_plain(device, bh, nq, nk, d):
     assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
     assert _o_error_within_limit(o, o_ref)
     assert (lse - lse_ref).abs().max() <= ATOL_LSE
+
+
+# the backward pair (wgmma, TMA): every head dim at Nq not a multiple of the
+# dQ kernel's 128-row blocks or the dK/dV kernel's 64- and 32-row query tiles
+# (300), a 24 x 16 latent (384), ragged and masked key counts (77, 300)
+# against 64-key tiles and 128-key blocks, BH 1, and BH 140, more blocks than
+# the card has SMs
+BWD_SHAPES = [(bh, nq, nk, d) for d in (40, 64, 80, 160)
+              for bh, nq, nk in ((1, 300, 300), (2, 384, 77), (140, 384, 300),
+                                 (3, 1024, 1024))]
+
+
+@pytest.mark.parametrize("bh,nq,nk,d", BWD_SHAPES)
+def test_bwd_pair_matches_plain_and_repeats_bitwise(device, bh, nq, nk, d):
+    gen = torch.Generator(device).manual_seed(8)
+    q, g = _rand(gen, (bh, nq, d), device), _rand(gen, (bh, nq, d), device)
+    k, v = _rand(gen, (bh, nk, d), device), _rand(gen, (bh, nk, d), device)
+    scale = d**-0.5
+    o_ref, lse = fa.attn_fwd_plain(q, k, v, scale)
+    delta = (g.float() * o_ref.float()).sum(-1)
+    before = fa.launch_counts()
+    runs = [(fa.attn_bwd_dq(q, k, v, g, lse, delta, scale),
+             *fa.attn_bwd_dkv(q, k, v, g, lse, delta, scale)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in fa.launch_counts().items()} == {
+        "attn_fwd": 0, "attn_bwd_dq": 2, "attn_bwd_dkv": 2, "attn_fwd_packed": 0}
+    refs = (fa.attn_bwd_dq_plain(q, k, v, g, lse, delta, scale),
+            *fa.attn_bwd_dkv_plain(q, k, v, g, lse, delta, scale))
+    for got, again, ref in zip(*runs, refs):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        assert torch.isfinite(got.float()).all()
+        ref = ref.float()
+        assert (got.float() - ref).abs().max() <= RTOL_GRAD * ref.abs().max()
+        assert torch.equal(got, again)  # no atomics: two calls give the same bits
+
+
+def test_autograd_matches_plain_autograd_at_sd21_level0(device):
+    """FlashAttention3D (the forward and both backward kernels) against
+    fp32 autograd through plain attention at SD2.1's level 0, batch 2."""
+    gen = torch.Generator(device).manual_seed(9)
+    q, k, v = (_rand(gen, (2, 4096, 5, 64), device).requires_grad_() for _ in range(3))
+    (fa.flash_attention(q, k, v, 64**-0.5).float() ** 2).sum().backward()
+    got = [t.grad.float() for t in (q, k, v)]
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * 64**-0.5
+    out = torch.einsum("bhqk,bkhd->bqhd", logits.softmax(-1), vf)
+    (out**2).sum().backward()
+    for a, b in zip(got, (qf.grad, kf.grad, vf.grad)):
+        assert (a - b).abs().max() <= RTOL_GRAD * b.abs().max()
 
 
 def test_autograd_matches_plain_autograd(device):
