@@ -21,9 +21,13 @@ Phases, each printing its result on a line of its own:
                head transposes;
   4. fused_kernels — the same for the fused configuration's kernels (3x3
                conv and its dx, GroupNorm-SiLU-conv, GroupNorm, GEGLU with
-               and without the LoRA delta) at the SD1.5 512 px shapes, with
-               F.conv2d and F.group_norm as the library's calls (no single
-               PyTorch call computes GroupNorm-SiLU-conv or GEGLU);
+               and without the LoRA delta) at the SD1.5 512 px shapes (and
+               the conv core at W 12, W 4 and a ragged Cin), each limit
+               beside a control that must fail it, with F.conv2d and
+               F.group_norm as the library's calls (no single PyTorch call
+               computes GroupNorm-SiLU-conv or GEGLU; F.conv2d on the
+               activated input is timed beside it as the conv alone), and
+               the conv core's weight repack, kernel against plain;
   5. unet    — one full-width SD1.5 forward through the kernels against the
                same forward through plain attention;
   6. unet_fused — one full-width 512 px forward with the fused
@@ -180,7 +184,8 @@ CONV_DX_PER_BACKWARD = 3
 # (B, Cin, H, W, Cout): the upsampler convs at B = 2 (inner loop), the
 # level-0 one at the references' B = 3; dx runs at the target's B = 1
 CONV_SHAPES = [(2, 1280, 16, 16, 1280), (2, 1280, 32, 32, 1280), (2, 640, 64, 64, 640),
-               (3, 640, 64, 64, 640)]
+               (3, 640, 64, 64, 640),
+               (2, 192, 16, 16, 320)]  # a ragged Cin (the gate takes any Cin >= 128)
 CONV_DX_SHAPES = [(1, 1280, 16, 16, 1280), (1, 1280, 32, 32, 1280), (1, 640, 64, 64, 640)]
 # every resnet conv shape of SD1.5 at 512 px, at B = 2; level 0 at B = 3, 1
 GNCONV_SHAPES = [
@@ -190,6 +195,9 @@ GNCONV_SHAPES = [
     (2, 1280, 16, 16, 1280), (2, 2560, 16, 16, 1280), (2, 1920, 16, 16, 1280),
     (2, 1280, 8, 8, 1280), (2, 2560, 8, 8, 1280),
     (3, 320, 64, 64, 320), (1, 320, 64, 64, 320),
+    # SD2.1's level 3 at 768 px (W 12) and the gate's smallest image (4 x 4):
+    # W % 8 != 0, the kernel's fill route
+    (2, 320, 12, 12, 320), (1, 128, 4, 4, 128),
 ]
 # (B, C, H, W, eps, silu): the transformer norms and conv_norm_out
 GN_SHAPES = [
@@ -518,12 +526,20 @@ def packed_kernel_checks(device, gen):
 
 
 def phase_fused_kernels(device) -> dict:
-    """Each fused kernel against its plain version at the path's shapes; at
-    the kernel's most frequent shape the kernel, the plain version and the
-    library's call (where one exists) timed, and the roofline bound."""
+    """Each fused kernel against its plain version at the path's shapes,
+    each limit beside a control that must fail it (`testing.*_control`:
+    conv without its last 64 input channels, GroupNorm-SiLU-conv with the
+    padding before the activation, GroupNorm with its last group
+    unnormalised, GEGLU without the last 64 of K); at the kernel's most
+    frequent shape the kernel, the plain version and the library's call
+    (where one exists) timed, and the roofline bound. Also the conv core's
+    weight repack (kernel against plain, bitwise) and, beside the
+    GroupNorm-SiLU-conv, F.conv2d on the already-activated input: the conv
+    alone, not a call that computes the fused function."""
     import torch
     import torch.nn.functional as F
 
+    from leco_tpu_torch import testing
     from leco_tpu_torch.kernels import roofline
     from leco_tpu_torch.ops import conv, geglu, gn_conv
     from leco_tpu_torch.ops import group_norm as gn
@@ -540,16 +556,21 @@ def phase_fused_kernels(device) -> dict:
     worst = {name: 0.0 for name in FUSED}
     timed = {}
     rows = []
+    extra = {}
 
-    def held(name, shape, got, ref, kernel_fn, plain_fn, library_fn=None):
+    def held(name, shape, got, ref, control, kernel_fn, plain_fn, library_fn=None):
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got.float()).all()), f"{name} non-finite at {shape}")
         err = (got.float() - ref.float()).abs().max().item()
         size = ref.float().abs().max().item()
-        check(err <= RTOL_FUSED * size,
-              f"{name} error {err} > {RTOL_FUSED} x {size} at {shape}")
+        limit = RTOL_FUSED * size
+        control_err = (control.float() - ref.float()).abs().max().item()
+        check(err <= limit, f"{name} error {err} > {RTOL_FUSED} x {size} at {shape}")
+        check(control_err > limit, f"the {name} limit {limit} passes its control "
+                                   f"({control_err}) at {shape}")
         worst[name] = max(worst[name], err)
-        row = {"kernel": name, "shape": list(shape), "max_abs_err": err, "max_abs_ref": size}
+        row = {"kernel": name, "shape": list(shape), "max_abs_err": err, "max_abs_ref": size,
+               "limit": limit, "control_err": control_err}
         if FUSED_TIMED.get(name) == tuple(shape[:len(FUSED_TIMED[name])]) and name not in timed:
             timed[name] = (time_ms(kernel_fn), time_ms(plain_fn),
                            time_ms(library_fn) if library_fn else None)
@@ -557,28 +578,48 @@ def phase_fused_kernels(device) -> dict:
             row.update(roofline.kernel_bound(name, FUSED_TIMED[name]))
         rows.append(row)
         print(json.dumps(row), flush=True)
+        return row
 
     for b, cin, h, w, cout in CONV_SHAPES + CONV_DX_SHAPES:
         x = bf16((b, cin, h, w))
-        wt = bf16((cout, cin, 3, 3), (9 * cin) ** -0.5)
-        if (b, cin, h, w, cout) in CONV_DX_SHAPES:  # dx: the kernel on the flipped weights
-            wt, bias, tag = conv.flip_weight(wt), None, "dx"
+        dx = (b, cin, h, w, cout) in CONV_DX_SHAPES
+        if dx:  # dx: the kernel on the flipped weights of a (Cin, Cout) forward conv
+            wt, bias = bf16((cin, cout, 3, 3), (9 * cin) ** -0.5), None
         else:
-            bias, tag = fp32((cout,)), "fwd"
+            wt, bias = bf16((cout, cin, 3, 3), (9 * cin) ** -0.5), fp32((cout,))
+        flipped = conv.flip_weight(wt) if dx else wt
         bias_bf16 = None if bias is None else bias.to(torch.bfloat16)
-        held("conv3x3", (b, cin, h, w, cout, tag), conv.conv3x3_gemm(x, wt, bias),
-             conv.conv3x3_gemm_plain(x, wt, bias),
-             lambda: conv.conv3x3_gemm(x, wt, bias), lambda: conv.conv3x3_gemm_plain(x, wt, bias),
-             lambda: F.conv2d(x, wt, bias_bf16, padding=1))
+        packed = conv.pack_weight(wt, dx)
+        torch.cuda.synchronize()
+        check(torch.equal(packed, conv.pack_weight_plain(wt, dx)),
+              f"the weight repack differs from its plain version at {(b, cin, h, w, cout)}")
+        row = held("conv3x3", (b, cin, h, w, cout, "dx" if dx else "fwd"),
+                   conv.conv3x3_gemm(x, wt, bias, flip=dx),
+                   conv.conv3x3_gemm_plain(x, wt, bias, flip=dx),
+                   testing.conv3x3_control(x, flipped, bias),
+                   lambda: conv.conv3x3_gemm(x, wt, bias, flip=dx),
+                   lambda: conv.conv3x3_gemm_plain(x, wt, bias, flip=dx),
+                   lambda: F.conv2d(x, flipped, bias_bf16, padding=1))
+        if "ms" in row:
+            extra["repack_ms"] = {"shape": [cout, cin], "kernel": time_ms(
+                lambda: conv.pack_weight(wt)), "plain": time_ms(lambda: conv.pack_weight_plain(wt))}
+            print(json.dumps({"repack_ms": extra["repack_ms"]}), flush=True)
     for b, cin, h, w, cout in GNCONV_SHAPES:
         x = bf16((b, cin, h, w))
         a, s = gn_conv.affine_from_gn(x, fp32((cin,), 0.1, 1.0), fp32((cin,), 0.1),
                                       fp32((b, cin)), 32, 1e-5)
         wt, bias = bf16((cout, cin, 3, 3), (9 * cin) ** -0.5), fp32((cout,))
-        held("gnconv3x3", (b, cin, h, w, cout), gn_conv.gnconv3x3(x, a, s, wt, bias),
-             gn_conv.gnconv3x3_plain(x, a, s, wt, bias),
-             lambda: gn_conv.gnconv3x3(x, a, s, wt, bias),
-             lambda: gn_conv.gnconv3x3_plain(x, a, s, wt, bias))
+        row = held("gnconv3x3", (b, cin, h, w, cout), gn_conv.gnconv3x3(x, a, s, wt, bias),
+                   gn_conv.gnconv3x3_plain(x, a, s, wt, bias),
+                   testing.gnconv3x3_control(x, a, s, wt, bias),
+                   lambda: gn_conv.gnconv3x3(x, a, s, wt, bias),
+                   lambda: gn_conv.gnconv3x3_plain(x, a, s, wt, bias))
+        if "ms" in row:
+            y, bias_bf16 = gn_conv.apply_affine_silu(x, a, s), bias.to(torch.bfloat16)
+            extra["gnconv3x3_conv_alone_ms"] = time_ms(
+                lambda: F.conv2d(y, wt, bias_bf16, padding=1))
+            print(json.dumps({"gnconv3x3_conv_alone_ms": extra["gnconv3x3_conv_alone_ms"],
+                              "shape": [b, cin, h, w, cout]}), flush=True)
     for b, c, h, w, eps, silu in GN_SHAPES:
         x = bf16((b, c, h, w), 2.0)
         scale, bias = fp32((c,), 0.1, 1.0), fp32((c,), 0.1)
@@ -586,6 +627,7 @@ def phase_fused_kernels(device) -> dict:
         held("group_norm", (b, c, h, w, eps, silu),
              gn.group_norm_silu(x, scale, bias, 32, eps, silu),
              gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu),
+             testing.group_norm_control(x, scale, bias, 32, eps, silu),
              lambda: gn.group_norm_silu(x, scale, bias, 32, eps, silu),
              lambda: gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu),
              None if silu else lambda: F.group_norm(x, 32, w16, b16, eps))
@@ -594,12 +636,14 @@ def phase_fused_kernels(device) -> dict:
         xd, up = (bf16((m, r)), bf16((2 * n, r), 0.1)) if r else (None, None)
         held("geglu", (m, k, n, r), geglu.geglu_gemm(x, wt, bias, xd, up),
              geglu.geglu_gemm_plain(x, wt, bias, xd, up),
+             testing.geglu_control(x, wt, bias, xd, up),
              lambda: geglu.geglu_gemm(x, wt, bias, xd, up),
              lambda: geglu.geglu_gemm_plain(x, wt, bias, xd, up))
     torch.cuda.empty_cache()
     check(set(timed) == set(FUSED), f"timed {sorted(timed)}")
+    check(set(extra) == {"repack_ms", "gnconv3x3_conv_alone_ms"}, f"extra timings {extra}")
     return {"worst_abs_err": worst, "timed_shapes": FUSED_TIMED, "timed_ms": timed,
-            "rtol": RTOL_FUSED, "shapes_checked": len(rows)}
+            "rtol": RTOL_FUSED, "shapes_checked": len(rows), **extra}
 
 
 def phase_unet(bundle, device) -> dict:

@@ -40,9 +40,11 @@ SIGNATURES = {
     "leco_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, dO, lse, delta, dk, dv, bh, nq, nk, d, scale, stream
     "leco_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # x, w, bias, out, batch, cin, h, w, cout, stream
+    # x, w (packed: (9, cout, cin8)), bias, out, batch, cin, h, w, cout, stream
     "leco_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, a, s, w, bias, out, batch, cin, h, w, cout, silu, stream
+    # w (OIHW), out (9, rows, cols8), cout, cin, flip, stream
+    "leco_conv3x3_pack": [_P, _P, _I, _I, _I, _P],
+    # x, a, s, w (packed), bias, out, batch, cin, h, w, cout, silu, stream
     "leco_gnconv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, gamma, beta, y, batch, c, h*w, groups, eps, silu, stream
     "leco_group_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels (forward,
-// dQ, dK/dV): TMA tile loads and stores through a CUtensorMap, mbarriers,
-// named barriers, register rebalancing, warpgroup MMAs (wgmma) whose
-// shared-memory operands are 128-byte swizzled, and the moves between an
-// accumulator fragment and such a tile.
+// dQ, dK/dV) and the 3x3 conv core: TMA tile loads and stores through a
+// CUtensorMap, mbarriers, named barriers, register rebalancing, warpgroup
+// MMAs (wgmma) whose shared-memory operands are swizzled (128 bytes; the
+// conv core's input also 64 and 32), and the moves between an accumulator
+// fragment and such a tile.
 //
 // Shared-memory tile layout (what TMA writes under CU_TENSOR_MAP_SWIZZLE_128B
 // and what the descriptors of `smem_desc` read): a (rows, 64 * blocks) bf16
@@ -108,6 +109,30 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ---- clusters --------------------------------------------------------------
+
+// every thread of the cluster arrives (release), then waits for all (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// the shared::cluster address of shared address `addr` in the block of rank `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 // ---- registers -------------------------------------------------------------
 
 template <int REGS>
@@ -125,6 +150,12 @@ __device__ __forceinline__ void claim_registers() {
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -188,16 +219,29 @@ __device__ __forceinline__ void stage_fragment(unsigned char* tile, int rows_tot
   }
 }
 
+// The swizzle that TMA applies under CU_TENSOR_MAP_SWIZZLE_{32,64,128}B
+// (BITS 1, 2, 3) to byte offset `off` from a base aligned to the pattern
+// (256, 512, 1024 bytes): the 16-byte chunk index, bits [4, 4 + BITS), is
+// XORed with bits [7, 7 + BITS). It is its own inverse, so it maps a
+// logical offset to where TMA put it and a physical offset back.
+template <int BITS>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+  return off ^ (((off >> 7) & ((1u << BITS) - 1)) << 4);
+}
+
 // ---- wgmma -----------------------------------------------------------------
 
-// Descriptor of a 128-byte-swizzled operand at shared address `addr`. For a
-// K-major operand `sbo` is the stride between 8-row groups (1024) and `lbo`
-// is unused; for an MN-major operand `lbo` is the stride between 64-column
-// blocks and `sbo` the stride between groups of 8 rows along K (1024).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// Descriptor of a swizzled operand at shared address `addr`; `layout` 1 is
+// the 128-byte swizzle, 2 the 64-byte, 3 the 32-byte. For a K-major operand
+// `sbo` is the stride between 8-row groups (1024 at 128 bytes) and `lbo` is
+// unused; for an MN-major operand `lbo` is the stride between blocks of one
+// swizzle row's width along MN (64, 32 or 16 bf16) and `sbo` the stride
+// between groups of 8 rows along K (8 rows of the swizzle width).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t layout = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
+         (static_cast<uint64_t>(layout) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -231,6 +275,32 @@ __device__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int accumulate);
 // laid out as a 64 x 16 accumulator fragment) * b (16 x N, MN-major, shared).
 template <int N>
 __device__ void wgmma_rs_mn(float* d, const uint32_t* a, uint64_t b);
+
+// d (64 x N fp32) += a (64 x 16, K-major, shared) * b (16 x N, MN-major,
+// shared): wgmma's transposed-B form.
+template <int N>
+__device__ void wgmma_ss_mn(float* d, uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<128>(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t a, uint64_t b, int accumulate) {
@@ -382,6 +452,34 @@ inline cudaError_t encode_bnhd(CUtensorMap* map, const void* ptr, int b, int n, 
                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 4-d bf16 tensor of `dims` (innermost first) with byte `strides` of dims
+// 1-3, read or written in `box`es under `swizzle`; out-of-bounds elements
+// load as 0 and are not stored.
+inline cudaError_t encode_4d(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[4],
+                             const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4],
+                             CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// An NCHW bf16 tensor (B, C, H, W) read as (W, C, H, B), innermost first, so
+// that a box of (box_w, box_c, box_h, 1) lands in shared memory as box_h
+// blocks of box_c lines of box_w pixels: for a fixed image row, the channels
+// are the rows of a swizzled tile whose pixels are contiguous. W must be a
+// multiple of 8 (every stride a multiple of 16 bytes).
+inline cudaError_t encode_nchw(CUtensorMap* map, const void* ptr, int b, int c, int h, int w,
+                               int box_w, int box_c, int box_h, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t hw = cuuint64_t(h) * cuuint64_t(w);
+  return encode_4d(map, ptr, {cuuint64_t(w), cuuint64_t(c), cuuint64_t(h), cuuint64_t(b)},
+                   {hw * 2, cuuint64_t(w) * 2, cuuint64_t(c) * hw * 2},
+                   {cuuint32_t(box_w), cuuint32_t(box_c), cuuint32_t(box_h), 1}, swizzle);
 }
 
 }  // namespace sm90

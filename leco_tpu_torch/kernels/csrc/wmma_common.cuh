@@ -1,6 +1,6 @@
-// Shared pieces of the WMMA kernels (conv3x3.cu, geglu.cu): the bf16 type
-// and the warp-level tensor-core API. The flash-attention kernels use the
-// Hopper helpers of sm90_common.cuh instead.
+// What the WMMA kernel (geglu.cu) takes from CUDA: the bf16 type and the
+// warp-level tensor-core API. The flash-attention kernels and the conv core
+// use the Hopper helpers of sm90_common.cuh instead.
 #pragma once
 
 #include <cuda_bf16.h>

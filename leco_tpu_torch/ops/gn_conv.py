@@ -8,9 +8,11 @@ Counterpart of `leco_tpu/ops/gn_conv.py`. The SD resnet half-block is
     channel-sum pass, and the resnet's `h + temb` folded in analytically
     (E[(x+t)²] = E[x²] + 2tE[x] + t², per-channel scalars), so the temb add
     never touches device memory;
-  * the kernel applies silu(a·x + s) to its input tile as it stages it and
-    runs the 3x3 conv on it: the TPU kernel `_gnconv_kernel` becomes the
-    `leco_gnconv3x3` entry point of `leco_tpu_torch/kernels/csrc/conv3x3.cu`.
+  * the kernel applies silu(a·x + s) once to each element of its staged
+    input tile, in place in shared memory, and runs the 3x3 conv on it: the
+    TPU kernel `_gnconv_kernel` becomes the `leco_gnconv3x3` entry point of
+    `leco_tpu_torch/kernels/csrc/conv3x3.cu` (the conv core of
+    `ops/conv.py`, weights repacked by `conv.pack_weight`).
 
 Not carried over: the v5e `_TUNED` table and `_dispatch`, the lane padding
 of Cin/Cout to multiples of 128, the gridded Cin and the VMEM budget, which
@@ -31,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from leco_tpu_torch.kernels import launch
-from leco_tpu_torch.ops.conv import conv_operands
+from leco_tpu_torch.ops.conv import conv_operands, pack_weight
 from leco_tpu_torch.ops.group_norm import group_norm_silu_ref, recompute_grads
 
 
@@ -132,9 +134,10 @@ def gnconv3x3(x, a, s, weight, bias, with_silu: bool = True):
     launch.check(name, "s", s, torch.float32, (b, cin), x.device)
     from leco_tpu_torch.kernels.build import library
 
+    packed = pack_weight(weight)
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
     err = library().leco_gnconv3x3(
-        x.data_ptr(), a.data_ptr(), s.data_ptr(), weight.data_ptr(),
+        x.data_ptr(), a.data_ptr(), s.data_ptr(), packed.data_ptr(),
         bias.data_ptr(), out.data_ptr(), b, cin, h, w, cout, int(with_silu),
         launch.stream(x),
     )

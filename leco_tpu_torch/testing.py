@@ -16,6 +16,11 @@ directory. The tokenizer is synthetic: the byte-level base vocabulary of
 CLIP's BPE (512 entries), merges that make each given word one token, and
 `<|startoftext|>` 49406 and `<|endoftext|>` 49407, so every id is below
 49408 and any text tokenizes.
+
+The controls (`*_control`) are what a fused kernel with a typical fault
+would compute, built from its plain version: each must fail the error limit
+that its kernel is held to (chip_smoke and the card tests check that it
+does), so that the limit is shown to catch such a fault.
 """
 
 from __future__ import annotations
@@ -47,9 +52,43 @@ from leco_tpu_torch.models.unet import (
     sd21_config,
     tiny_unet_config,
 )
+from leco_tpu_torch.ops import conv, geglu, gn_conv
+from leco_tpu_torch.ops import group_norm as gn
 from leco_tpu_torch.ops.attention import default_backend
 from leco_tpu_torch.ops.schedulers import NoiseScheduler
 from leco_tpu_torch.train.trainer import ModelBundle
+
+
+CONTROL_DROPPED = 64  # input channels (conv) or K columns (GEGLU) a control leaves out
+
+
+def conv3x3_control(x, weight, bias=None):
+    """The plain conv without its last 64 input channels."""
+    k = x.shape[1] - CONTROL_DROPPED
+    return conv.conv3x3_gemm_plain(x[:, :k].contiguous(), weight[:, :k], bias)
+
+
+def gnconv3x3_control(x, a, s, weight, bias, with_silu: bool = True):
+    """The plain GroupNorm-SiLU-conv with the zero padding put before the
+    activation (the border taps see silu(s), not 0)."""
+    y = gn_conv.apply_affine_silu(torch.nn.functional.pad(x, (1, 1, 1, 1)), a, s, with_silu)
+    out = torch.nn.functional.conv2d(y.float(), weight.to(x.dtype).float(), None, 1, 0)
+    return (out + bias.float()[None, :, None, None]).to(x.dtype)
+
+
+def group_norm_control(x, scale, bias, num_groups: int, eps: float, with_silu: bool = True):
+    """The plain GroupNorm with its last group's channels left as the input,
+    unnormalised (a reduction that misses a group)."""
+    y = gn.group_norm_silu_plain(x, scale, bias, num_groups, eps, with_silu)
+    cg = x.shape[1] // num_groups
+    y[:, -cg:] = x[:, -cg:]
+    return y
+
+
+def geglu_control(x, weight, bias, xd=None, up=None):
+    """The plain GEGLU without the last 64 columns of K."""
+    k = x.shape[1] - CONTROL_DROPPED
+    return geglu.geglu_gemm_plain(x[:, :k], weight[:, :k], bias, xd, up)
 
 
 def fake_encode_fn(cross_attention_dim: int, device):

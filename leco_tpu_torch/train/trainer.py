@@ -16,9 +16,11 @@ draws (pair, timesteps_to, resolution) from the same seeded
 `np.random.default_rng` stream in the same order as the JAX package, so the
 same config gives the same schedule. Not ported yet (raise
 NotImplementedError, queued in ROADMAP.md): step_chunk > 1, resume,
-save_state, ema_decay > 0, wandb, tensor/spatial parallelism,
-checkpoint_unet. `data_parallel: true` on one device is a no-op, as it is
-on one chip in the JAX package. Saves are written synchronously whatever
+save_state, ema_decay > 0, tensor/spatial parallelism, checkpoint_unet.
+`logging.use_wandb` does what the JAX package does: `wandb` is imported
+only then, and if it is not installed the loop says so and trains on.
+`data_parallel: true` on one device is a no-op, as it is on one chip in the
+JAX package. Saves are written synchronously whatever
 `save.async_write` says. Progress is one printed line per iteration
 (`Loss*1k`), where the reference draws a tqdm bar.
 """
@@ -192,7 +194,6 @@ def _refuse_unported(config: RootConfig) -> None:
         "train.tensor_parallel > 1": t.tensor_parallel > 1,
         "train.spatial_parallel != 1": t.spatial_parallel != 1,
         "train.checkpoint_unet": t.checkpoint_unet,
-        "logging.use_wandb": config.logging.use_wandb,
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
@@ -213,6 +214,14 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
     save_path = Path(config.save.path)
     if config.logging.verbose:
         print(metadata)
+    wandb_run = None
+    if config.logging.use_wandb:
+        try:
+            import wandb
+
+            wandb_run = wandb.init(project=f"LECO_{config.save.name}", config=metadata)
+        except ImportError:
+            print("wandb not installed; continuing without it")
     save_dtype = parse_precision(config.save.precision)
 
     seed = config.train.seed
@@ -272,6 +281,8 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
                           "timesteps_to": j_tsto, "resolution": [j_h, j_w]}
                 metrics_file.write(json.dumps(record) + "\n")
                 metrics_file.flush()
+                if wandb_run is not None:
+                    wandb_run.log({"loss": loss_val, "iteration": j, "lr": lr_at(j)})
                 if on_step is not None:
                     on_step(j, loss_val)
             pending.clear()
@@ -314,6 +325,8 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
 
         drain()
         save(save_path / f"{config.save.name}_last.safetensors")
+    if wandb_run is not None:
+        wandb_run.finish()
     print("Done.")
     return {
         "lora": {k: v.detach().cpu() for k, v in lora.items()},

@@ -10,6 +10,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -30,7 +31,7 @@ REPO = Path(__file__).resolve().parents[1]
 ITERATIONS, MAX_STEPS = 2, 3
 
 
-def write_run(tmp: Path, ckpt: Path, extra_train: str = "") -> Path:
+def write_run(tmp: Path, ckpt: Path, extra_train: str = "", logging: str = "") -> Path:
     (tmp / "prompts.yaml").write_text(
         "# the van-gogh recipe at 128 px\n"
         "- target: \"van gogh\"\n  positive: \"van gogh\"\n  unconditional: \"\"\n"
@@ -62,7 +63,7 @@ save:
   precision: "float32"
 other:
   use_flash_attention: true
-""")
+{logging}""")
     return config
 
 
@@ -133,3 +134,43 @@ def test_cli_refuses_unported_options_before_loading(tmp_path):
     config = write_run(tmp_path, tmp_path / "not-there", "\n  checkpoint_unet: true")
     with pytest.raises(NotImplementedError, match="train.checkpoint_unet"):
         main(parse_args(["--config_file", str(config), "--device", "cpu"]))
+
+
+def test_cli_trains_with_use_wandb_when_wandb_is_missing(checkpoint, tmp_path, monkeypatch,
+                                                        capsys):
+    """As the JAX trainer does: wandb cannot be imported, so the run says so
+    and trains on (examples/cat_ears_config.yaml sets use_wandb)."""
+    monkeypatch.setitem(sys.modules, "wandb", None)  # `import wandb` raises ImportError
+    config = write_run(tmp_path, checkpoint, logging="logging:\n  use_wandb: true\n")
+    result = main(parse_args(["--config_file", str(config), "--device", "cpu"]))
+    assert len(result["losses"]) == ITERATIONS and all(np.isfinite(result["losses"]))
+    assert (tmp_path / "out" / "tiny_cli_last.safetensors").exists()
+    assert "wandb not installed; continuing without it" in capsys.readouterr().out
+
+
+def test_cli_logs_loss_iteration_and_lr_to_wandb(checkpoint, tmp_path, monkeypatch):
+    calls = {"init": [], "log": [], "finish": 0}
+
+    class Run:
+        def log(self, record):
+            calls["log"].append(record)
+
+        def finish(self):
+            calls["finish"] += 1
+
+    def init(**kwargs):
+        calls["init"].append(kwargs)
+        return Run()
+
+    fake = types.ModuleType("wandb")
+    fake.init = init
+    monkeypatch.setitem(sys.modules, "wandb", fake)
+    config = write_run(tmp_path, checkpoint, logging="logging:\n  use_wandb: true\n")
+    result = main(parse_args(["--config_file", str(config), "--device", "cpu"]))
+    (init_kwargs,) = calls["init"]
+    assert init_kwargs["project"] == "LECO_tiny_cli"
+    assert set(init_kwargs["config"]) == {"prompts", "config"}
+    assert [r["iteration"] for r in calls["log"]] == list(range(ITERATIONS))
+    assert all(set(r) == {"loss", "iteration", "lr"} and r["lr"] == 1e-4 for r in calls["log"])
+    assert [r["loss"] for r in calls["log"]] == result["losses"]
+    assert calls["finish"] == 1

@@ -81,15 +81,17 @@ def test_gradients_match_jax_custom_vjp():
 
 def test_dx_is_the_kernel_on_the_flipped_weights(monkeypatch):
     """The backward's dx goes through the kernel's wrapper (so on the card it
-    is a launch of the same kernel) and equals autograd of the plain conv;
-    dw is not computed for frozen weights."""
+    is a launch of the same kernel, the flip folded into its weight repack)
+    and equals autograd of the plain conv; dw is not computed for frozen
+    weights."""
     x, wt, bias = (torch.from_numpy(a) for a in _data(1, 16, 8, 8, 24, seed=3))
     calls = []
     real = conv.conv3x3_gemm
-    monkeypatch.setattr(conv, "conv3x3_gemm", lambda *a: calls.append(a[1].shape) or real(*a))
+    monkeypatch.setattr(conv, "conv3x3_gemm", lambda *a, **k: calls.append(
+        (tuple(a[1].shape), k.get("flip", False))) or real(*a, **k))
     xg = x.clone().requires_grad_()
     conv.conv3x3(xg, wt, bias).square().sum().backward()
-    assert calls == [(24, 16, 3, 3), (16, 24, 3, 3)]
+    assert calls == [((24, 16, 3, 3), False), ((24, 16, 3, 3), True)]
     xr = x.clone().requires_grad_()
     F.conv2d(xr, wt, bias, 1, 1).square().sum().backward()
     np.testing.assert_allclose(xg.grad.numpy(), xr.grad.numpy(), atol=1e-4)
@@ -160,3 +162,46 @@ def test_lora_branch_is_added_after_the_kernel(monkeypatch):
         monkeypatch.setenv("LECO_CONV_BACKEND", "xla")
         want = layer(x)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 24), (20, 24), (320, 320), (192, 320)])
+def test_weight_repack_is_the_jax_tap_layout_transposed(cin, cout):
+    """`pack_weight_plain` (what the kernel reads, and what its CUDA repack is
+    held to on the card) is the JAX kernel's `kernel.reshape(9, cin, cout)`
+    (conv.py:101) of the HWIO weights, transposed to (9, Cout, Cin), with
+    zeros past Cin to a multiple of 8; flipped, the same of the backward's
+    `k_flip` (conv.py:166)."""
+    _, wt, _ = _data(1, cin, 4, 4, cout, seed=5)
+    hwio = jnp.asarray(_hwio(wt))
+    want = np.asarray(hwio.reshape(9, cin, cout)).transpose(0, 2, 1)
+    k_flip = jnp.flip(hwio, axis=(0, 1)).transpose(0, 1, 3, 2)
+    want_flip = np.asarray(k_flip.reshape(9, cout, cin)).transpose(0, 2, 1)
+    for flip, ref, cols in ((False, want, cin), (True, want_flip, cout)):
+        got = conv.pack_weight(torch.from_numpy(wt), flip).numpy()
+        assert got.shape == (9, ref.shape[1], -(-cols // 8) * 8)
+        np.testing.assert_array_equal(got[:, :, :cols], ref)
+        assert not got[:, :, cols:].any()
+
+
+# every conv shape of the SD1.5 UNet at 512 px (batch 2; the resnet convs
+# and the upsamplers), SD2.1's 768 px levels (96, 48, 24, 12), 1024 px's
+# 128, and the gate's smallest image: (B, Cin, H, W, Cout), then the route,
+# the tile width, the pixel tiles of an image and the K split
+@pytest.mark.parametrize("b,cin,h,w,cout,route,wb,tiles,splits", [
+    (2, 320, 64, 64, 320, "tma", 64, 32, 1), (2, 960, 64, 64, 320, "tma", 64, 32, 1),
+    (2, 640, 64, 64, 640, "tma", 64, 32, 1), (2, 640, 32, 32, 640, "tma", 32, 8, 1),
+    (2, 1920, 32, 32, 640, "tma", 32, 8, 1), (2, 1280, 32, 32, 1280, "tma", 32, 8, 1),
+    (2, 640, 16, 16, 1280, "tma", 16, 2, 3), (2, 2560, 16, 16, 1280, "tma", 16, 2, 3),
+    (2, 1280, 8, 8, 1280, "tma", 16, 1, 5), (2, 2560, 8, 8, 1280, "tma", 16, 1, 6),
+    (4, 320, 96, 96, 320, "tma", 64, 96, 1), (4, 640, 48, 48, 640, "tma", 64, 24, 1),
+    (4, 1280, 24, 24, 1280, "tma", 32, 6, 1), (4, 1280, 12, 12, 1280, "fill", 16, 2, 1),
+    (1, 320, 128, 128, 320, "tma", 64, 128, 1), (1, 128, 4, 4, 128, "fill", 16, 1, 2),
+])
+def test_tile_plan_at_every_sd_shape(b, cin, h, w, cout, route, wb, tiles, splits):
+    plan = conv.tile_plan(b, cin, h, w, cout)
+    assert (plan["route"], plan["wb"], plan["pixel_tiles_per_image"], plan["splits"]) == (
+        route, wb, tiles, splits)
+    assert plan["rows"] * plan["wb"] == 128 and plan["swizzle"] == 2 * wb
+    assert plan["wb"] >= min(w, 64) or w % 8  # one tile spans the row, or 64 columns of it
+    per = -(-plan["chunks"] // plan["splits"])  # every split gets at least one chunk
+    assert (plan["splits"] - 1) * per < plan["chunks"] <= plan["splits"] * per

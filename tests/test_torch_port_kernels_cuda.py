@@ -10,6 +10,7 @@ GPU machine with
 import pytest
 import torch
 
+from leco_tpu_torch import testing
 from leco_tpu_torch.ops import conv, geglu, gn_conv
 from leco_tpu_torch.ops import flash_attention as fa
 from leco_tpu_torch.ops import group_norm as gn
@@ -207,11 +208,16 @@ def test_packed_wrapper_refuses_what_the_kernel_does_not_take(device):
         fa.attn_fwd_packed(q.transpose(0, 1).contiguous().transpose(0, 1), q, q, 5, 0.1)
 
 
-def _close(got, ref):
+def _close(got, ref, control=None):
+    """got within RTOL_FUSED x max|ref| of ref; a `control` (what a faulty
+    kernel computes, `testing.*_control`) must fail that limit."""
     assert got.dtype == ref.dtype and got.shape == ref.shape
     assert torch.isfinite(got.float()).all()
+    limit = RTOL_FUSED * ref.float().abs().max().item()
     err = (got.float() - ref.float()).abs().max().item()
-    assert err <= RTOL_FUSED * ref.float().abs().max().item(), err
+    assert err <= limit, err
+    if control is not None:
+        assert (control.float() - ref.float()).abs().max().item() > limit
 
 
 def _bf16(gen, shape, device, scale=1.0):
@@ -226,7 +232,8 @@ def test_conv3x3_and_its_dx_match_plain(device, b, cin, h, w, cout):
     wt = _bf16(gen, (cout, cin, 3, 3), device, (9 * cin) ** -0.5)
     bias = torch.randn((cout,), generator=gen, device=device)
     before = conv.conv3x3_gemm.launches
-    _close(conv.conv3x3_gemm(x, wt, bias), conv.conv3x3_gemm_plain(x, wt, bias))
+    control = testing.conv3x3_control(x, wt, bias) if cin > testing.CONTROL_DROPPED else None
+    _close(conv.conv3x3_gemm(x, wt, bias), conv.conv3x3_gemm_plain(x, wt, bias), control)
     g = _bf16(gen, (b, cout, h, w), device)
     xg = x.clone().requires_grad_()
     conv.conv3x3(xg, wt, bias).backward(g)
@@ -249,7 +256,126 @@ def test_gnconv3x3_matches_plain(device, b, cin, h, w, cout):
     got = gn_conv.gnconv3x3(x, a, s, wt, bias)
     torch.cuda.synchronize()
     assert gn_conv.gnconv3x3.launches - before == 1
-    _close(got, gn_conv.gnconv3x3_plain(x, a, s, wt, bias))
+    _close(got, gn_conv.gnconv3x3_plain(x, a, s, wt, bias),
+           testing.gnconv3x3_control(x, a, s, wt, bias))
+
+
+# the conv core (wgmma, TMA): every conv and GroupNorm-conv shape of
+# chip_smoke (SD1.5 at 512 px), then W 12 (SD2.1's level 3 at 768 px) and W
+# 4 (the fill route: W % 8 != 0), a ragged Cin (192), and B 1 and 3
+CONV_CORE_SHAPES = [
+    (2, 1280, 16, 16, 1280), (2, 1280, 32, 32, 1280), (2, 640, 64, 64, 640),
+    (3, 640, 64, 64, 640), (2, 192, 16, 16, 320), (2, 320, 12, 12, 320),
+    (1, 128, 4, 4, 128), (3, 192, 12, 12, 128), (1, 320, 8, 8, 320),
+]
+CONV_DX_CORE_SHAPES = [(1, 1280, 16, 16, 1280), (1, 1280, 32, 32, 1280), (1, 640, 64, 64, 640)]
+GNCONV_CORE_SHAPES = [
+    (2, 320, 64, 64, 320), (2, 960, 64, 64, 320), (2, 640, 64, 64, 320),
+    (2, 320, 32, 32, 640), (2, 640, 32, 32, 640), (2, 1920, 32, 32, 640),
+    (2, 1280, 32, 32, 640), (2, 960, 32, 32, 640), (2, 640, 16, 16, 1280),
+    (2, 1280, 16, 16, 1280), (2, 2560, 16, 16, 1280), (2, 1920, 16, 16, 1280),
+    (2, 1280, 8, 8, 1280), (2, 2560, 8, 8, 1280), (3, 320, 64, 64, 320),
+    (1, 320, 64, 64, 320), (2, 320, 12, 12, 320), (1, 128, 4, 4, 128),
+    (2, 192, 16, 16, 320), (3, 640, 12, 12, 640),
+]
+
+
+def _gn_affine(gen, x, device):
+    b, cin = x.shape[:2]
+    return gn_conv.affine_from_gn(
+        x, 1 + 0.1 * torch.randn((cin,), generator=gen, device=device),
+        0.1 * torch.randn((cin,), generator=gen, device=device),
+        torch.randn((b, cin), generator=gen, device=device), 32 if cin % 32 == 0 else 4, 1e-5)
+
+
+@pytest.mark.parametrize("b,cin,h,w,cout", CONV_CORE_SHAPES)
+def test_conv_core_matches_plain(device, b, cin, h, w, cout):
+    gen = torch.Generator(device).manual_seed(10)
+    x = _bf16(gen, (b, cin, h, w), device)
+    wt = _bf16(gen, (cout, cin, 3, 3), device, (9 * cin) ** -0.5)
+    bias = torch.randn((cout,), generator=gen, device=device)
+    before = conv.conv3x3_gemm.launches
+    got = conv.conv3x3_gemm(x, wt, bias)
+    torch.cuda.synchronize()
+    assert conv.conv3x3_gemm.launches - before == 1
+    _close(got, conv.conv3x3_gemm_plain(x, wt, bias), testing.conv3x3_control(x, wt, bias))
+    assert torch.equal(conv.conv3x3_gemm(x, wt, bias), got)  # two calls, the same bits
+
+
+@pytest.mark.parametrize("b,c,h,w,cout", CONV_DX_CORE_SHAPES)
+def test_conv_core_dx_matches_plain(device, b, c, h, w, cout):
+    """dx: the conv of g with the flipped weights, flipped in the repack."""
+    gen = torch.Generator(device).manual_seed(11)
+    g = _bf16(gen, (b, c, h, w), device)
+    wt = _bf16(gen, (c, cout, 3, 3), device, (9 * c) ** -0.5)  # the forward conv's OIHW
+    flipped = conv.flip_weight(wt)
+    got = conv.conv3x3_gemm(g, wt, flip=True)
+    _close(got, conv.conv3x3_gemm_plain(g, flipped), testing.conv3x3_control(g, flipped))
+    assert torch.equal(got, conv.conv3x3_gemm(g, flipped))
+
+
+@pytest.mark.parametrize("b,cin,h,w,cout", GNCONV_CORE_SHAPES)
+def test_gnconv_core_matches_plain(device, b, cin, h, w, cout):
+    gen = torch.Generator(device).manual_seed(12)
+    x = _bf16(gen, (b, cin, h, w), device)
+    a, s = _gn_affine(gen, x, device)
+    wt = _bf16(gen, (cout, cin, 3, 3), device, (9 * cin) ** -0.5)
+    bias = torch.randn((cout,), generator=gen, device=device)
+    before = gn_conv.gnconv3x3.launches
+    got = gn_conv.gnconv3x3(x, a, s, wt, bias)
+    torch.cuda.synchronize()
+    assert gn_conv.gnconv3x3.launches - before == 1
+    _close(got, gn_conv.gnconv3x3_plain(x, a, s, wt, bias),
+           testing.gnconv3x3_control(x, a, s, wt, bias))
+    assert torch.equal(gn_conv.gnconv3x3(x, a, s, wt, bias), got)  # the same bits
+
+
+@pytest.mark.parametrize("b,cin,h,w,cout", [(2, 320, 64, 64, 320), (2, 640, 32, 32, 640),
+                                            (2, 1280, 8, 8, 1280), (2, 320, 12, 12, 320)])
+def test_gnconv_core_without_silu(device, b, cin, h, w, cout):
+    gen = torch.Generator(device).manual_seed(13)
+    x = _bf16(gen, (b, cin, h, w), device)
+    a, s = _gn_affine(gen, x, device)
+    wt = _bf16(gen, (cout, cin, 3, 3), device, (9 * cin) ** -0.5)
+    bias = torch.randn((cout,), generator=gen, device=device)
+    _close(gn_conv.gnconv3x3(x, a, s, wt, bias, with_silu=False),
+           gn_conv.gnconv3x3_plain(x, a, s, wt, bias, with_silu=False),
+           testing.gnconv3x3_control(x, a, s, wt, bias, with_silu=False))
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (32, 32), (16, 16), (12, 12), (4, 4)])
+def test_gnconv_core_real_zero_inside_the_image_becomes_silu_s(device, h, w):
+    """x = 0 in the image's left half: those inputs become silu(s), while
+    the padding around the image stays 0 (it comes after the activation)."""
+    gen = torch.Generator(device).manual_seed(14)
+    x = _bf16(gen, (2, 128, h, w), device)
+    x[:, :, :, : w // 2] = 0
+    a = 1 + 0.1 * torch.randn((2, 128), generator=gen, device=device)
+    s = 1 + torch.randn((2, 128), generator=gen, device=device)
+    wt = _bf16(gen, (192, 128, 3, 3), device, (9 * 128) ** -0.5)
+    bias = torch.randn((192,), generator=gen, device=device)
+    _close(gn_conv.gnconv3x3(x, a, s, wt, bias), gn_conv.gnconv3x3_plain(x, a, s, wt, bias),
+           testing.gnconv3x3_control(x, a, s, wt, bias))
+
+
+@pytest.mark.parametrize("cout,cin", [(320, 320), (1280, 2560), (320, 192), (24, 20)])
+def test_pack_weight_kernel_equals_plain(device, cout, cin):
+    gen = torch.Generator(device).manual_seed(15)
+    wt = _bf16(gen, (cout, cin, 3, 3), device)
+    for flip in (False, True):
+        assert torch.equal(conv.pack_weight(wt, flip), conv.pack_weight_plain(wt, flip))
+
+
+def test_conv_core_refuses_a_misaligned_pointer(device):
+    n = 2 * 128 * 16 * 16
+    x = torch.zeros(n + 1, device=device, dtype=torch.bfloat16)[1:].view(2, 128, 16, 16)
+    wt = torch.zeros((128, 128, 3, 3), device=device, dtype=torch.bfloat16)
+    bias = torch.zeros(128, device=device)
+    with pytest.raises(ValueError):  # off the 16-byte boundary that TMA needs
+        conv.conv3x3_gemm(x, wt, bias)
+    a = torch.ones((2, 128), device=device)
+    with pytest.raises(ValueError):
+        gn_conv.gnconv3x3(x, a, a, wt, bias)
 
 
 @pytest.mark.parametrize("b,c,h,w,eps,silu", [(2, 320, 64, 64, 1e-6, False),
@@ -265,7 +391,8 @@ def test_group_norm_matches_plain(device, b, c, h, w, eps, silu):
     got = gn.group_norm_silu(x, scale, bias, 32, eps, silu)
     torch.cuda.synchronize()
     assert gn.group_norm_silu.launches - before == 1
-    _close(got, gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu))
+    _close(got, gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu),
+           testing.group_norm_control(x, scale, bias, 32, eps, silu))
 
 
 @pytest.mark.parametrize("m,k,n,r", [(8192, 320, 1280, 4), (2048, 640, 2560, 0),
@@ -281,7 +408,8 @@ def test_geglu_matches_plain(device, m, k, n, r):
     got = geglu.geglu_gemm(x, wt, bias, xd, up)
     torch.cuda.synchronize()
     assert geglu.geglu_gemm.launches - before == 1
-    _close(got, geglu.geglu_gemm_plain(x, wt, bias, xd, up))
+    control = testing.geglu_control(x, wt, bias, xd, up) if k > testing.CONTROL_DROPPED else None
+    _close(got, geglu.geglu_gemm_plain(x, wt, bias, xd, up), control)
 
 
 def test_fused_wrappers_refuse_what_the_kernels_do_not_take(device):
