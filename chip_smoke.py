@@ -14,7 +14,11 @@ Phases, each printing its result on a line of its own:
                tile), with times of the kernel, its plain version and
                F.scaled_dot_product_attention (the library's call, which the
                port never makes; its backward at both level-0 target
-               shapes), and each shape's roofline bound; the
+               shapes), and each shape's roofline bound; every time twice:
+               `ms` by CUDA events around 10 back-to-back calls (the
+               wrapper's host time counts, as in the earlier runs) and
+               `device_ms`, the device's own time per call from
+               torch.profiler (`leco_tpu_torch/kernels/timing.py`); the
                packed-layout forward (LECO_FLASH_PACKED=1) at the SD2.1 and
                SD1.5 512 px self-attention shapes and a masked ragged key
                count, timed the same way and against the 3-d route with its
@@ -26,8 +30,11 @@ Phases, each printing its result on a line of its own:
                beside a control that must fail it, with F.conv2d and
                F.group_norm as the library's calls (no single PyTorch call
                computes GroupNorm-SiLU-conv or GEGLU; F.conv2d on the
-               activated input is timed beside it as the conv alone), and
-               the conv core's weight repack, kernel against plain;
+               activated input and F.linear(x, W, b) are timed beside them
+               as the conv alone and the GEMM alone), and the conv core's
+               weight repack, kernel against plain; the GroupNorm, bound by
+               bytes, takes its device time rotating over enough input
+               copies to exceed twice the L2;
   5. unet    — one full-width SD1.5 forward through the kernels against the
                same forward through plain attention;
   6. unet_fused — one full-width 512 px forward with the fused
@@ -36,7 +43,8 @@ Phases, each printing its result on a line of its own:
   7. profile — one train step under torch.profiler (device busy share, the
                kernels that take the time), and the step's time with the
                kernels against plain attention; then the same step with the
-               knobs on: its busy share, and its time against the knobs off;
+               knobs on: its busy share, each fused kernel's device time and
+               share of it, and its time against the knobs off;
   8. train   — three iterations of `leco_tpu_torch.train.trainer.train()` on a
                random full-width SD1.5 bundle (bf16, rank-4 lierla, DDIM,
                512 px, batch 1, the van-gogh erase prompt), with every
@@ -56,8 +64,8 @@ Phases, each printing its result on a line of its own:
                losses and saves that read back equal.
 The knobs are the JAX package's: LECO_CONV_BACKEND=gemm, LECO_RESNET_FUSED=1,
 LECO_TPU_FUSED_GN=1, LECO_GEGLU=fused, and LECO_FLASH_PACKED=1. Then a JSON
-line with every kernel's launches, error, times (kernel, plain, library)
-and roofline bound (`leco_tpu_torch/kernels/roofline.py`) at the shape where
+line with every kernel's launches, error, times (kernel, plain, library;
+each as `ms` and `device_ms`) and roofline bound (`leco_tpu_torch/kernels/roofline.py`) at the shape where
 the path runs it most, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: the script then exits
 non-zero and prints no result. It needs CUDA and the rest of the repo.
@@ -329,6 +337,29 @@ def time_ms(fn, warmup: int = 2, iters: int = 7) -> float:
     return statistics.median(times)
 
 
+TIME_KEYS = ("ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms",
+             "library_device_ms")
+
+
+def kernel_times(kernel_fn, plain_fn, library_fn=None, rotated=None) -> dict:
+    """A kernel's, its plain version's and the library's time per call, each
+    two ways: `ms` by CUDA events around back-to-back calls (the wrapper's
+    host time counts, as in every earlier run) and `device_ms`, the device's
+    own time per call from torch.profiler (`kernels/timing.py`). `rotated`,
+    for a row bound by bytes: (kernel, plain, library) lists of calls over
+    enough input copies to exceed twice the L2, which `device_ms` cycles
+    through instead, so that each call reads its input from device memory."""
+    from leco_tpu_torch.kernels import timing
+
+    fns = (kernel_fn, plain_fn, library_fn)
+    dev_fns = rotated if rotated is not None else fns
+    out = {}
+    for prefix, fn, dev_fn in zip(("", "plain_", "library_"), fns, dev_fns):
+        out[f"{prefix}ms"] = time_ms(fn) if fn else None
+        out[f"{prefix}device_ms"] = timing.device_ms(dev_fn) if fn else None
+    return out
+
+
 def warm_up_clocks(device) -> None:
     """Keep the card busy for WARM_UP_SECONDS with bf16 matrix products, so
     that the first kernel timed does not catch its clocks on the way up."""
@@ -377,7 +408,7 @@ def phase_kernels(device) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from leco_tpu_torch.kernels import roofline
+    from leco_tpu_torch.kernels import roofline, timing
     from leco_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device)
@@ -421,39 +452,55 @@ def phase_kernels(device) -> dict:
         worst["attn_bwd_dq"] = max(worst["attn_bwd_dq"], e["dq"])
         worst["attn_bwd_dkv"] = max(worst["attn_bwd_dkv"], e["dk"], e["dv"])
 
-        ms = {
-            "attn_fwd": (time_ms(lambda: fa.attn_fwd(q, k, v, scale)),
-                         time_ms(lambda: fa.attn_fwd_plain(q, k, v, scale))),
-            "attn_bwd_dq": (
-                time_ms(lambda: fa.attn_bwd_dq(q, k, v, g, lse_ref, delta, scale)),
-                time_ms(lambda: fa.attn_bwd_dq_plain(q, k, v, g, lse_ref, delta, scale))),
-            "attn_bwd_dkv": (
-                time_ms(lambda: fa.attn_bwd_dkv(q, k, v, g, lse_ref, delta, scale)),
-                time_ms(lambda: fa.attn_bwd_dkv_plain(q, k, v, g, lse_ref, delta, scale))),
+        fns = {
+            "attn_fwd": (lambda: fa.attn_fwd(q, k, v, scale),
+                         lambda: fa.attn_fwd_plain(q, k, v, scale)),
+            "attn_bwd_dq": (lambda: fa.attn_bwd_dq(q, k, v, g, lse_ref, delta, scale),
+                            lambda: fa.attn_bwd_dq_plain(q, k, v, g, lse_ref, delta, scale)),
+            "attn_bwd_dkv": (lambda: fa.attn_bwd_dkv(q, k, v, g, lse_ref, delta, scale),
+                             lambda: fa.attn_bwd_dkv_plain(q, k, v, g, lse_ref, delta, scale)),
         }
+        ms = {n: (time_ms(kernel), time_ms(plain)) for n, (kernel, plain) in fns.items()}
         # the library's forward, then the kernel's second turn
         q4, k4, v4 = q[None], k[None], v[None]
-        library = {"attn_fwd": time_ms(
-            lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))}
+        library_fns = {"attn_fwd": lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)}
+        library = {"attn_fwd": time_ms(library_fns["attn_fwd"])}
         fwd_second_turn = time_ms(lambda: fa.attn_fwd(q, k, v, scale))
         pair = {}
         if (bh, nq, nk, d) in BWD_LIBRARY_SHAPES:
             # one SDPA backward computes what the dq and dkv kernels compute together
             qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
             out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
-            library["attn_bwd_dq"] = library["attn_bwd_dkv"] = time_ms(
+            library_fns["attn_bwd_dq"] = library_fns["attn_bwd_dkv"] = (
                 lambda: torch.autograd.grad(out, (qg, kg, vg), g[None], retain_graph=True))
+            library["attn_bwd_dq"] = library["attn_bwd_dkv"] = time_ms(
+                library_fns["attn_bwd_dq"])
             pair = {"bwd_pair_ms": ms["attn_bwd_dq"][0] + ms["attn_bwd_dkv"][0]}
+        # the device's own time of each call (no host time between launches)
+        dev = {n: (timing.device_ms(kernel), timing.device_ms(plain))
+               for n, (kernel, plain) in fns.items()}
+        library_dev = {"attn_fwd": timing.device_ms(library_fns["attn_fwd"])}
+        if "attn_bwd_dq" in library_fns:
+            library_dev["attn_bwd_dq"] = library_dev["attn_bwd_dkv"] = timing.device_ms(
+                library_fns["attn_bwd_dq"])
+            pair["bwd_pair_device_ms"] = dev["attn_bwd_dq"][0] + dev["attn_bwd_dkv"][0]
             del qg, kg, vg, out
+        del library_fns
         for name, shape in TIMED_SHAPE.items():
             if (bh, nq, nk, d) == shape:
-                timed[name] = (*ms[name], library.get(name))
+                timed[name] = {"ms": ms[name][0], "plain_ms": ms[name][1],
+                               "library_ms": library.get(name), "device_ms": dev[name][0],
+                               "plain_device_ms": dev[name][1],
+                               "library_device_ms": library_dev.get(name)}
         print(json.dumps({"shape": [bh, nq, nk, d], "max_abs_err": e,
                           "o_limit": o_check["o_limit"], "o_control": o_check["o_control"],
                           "grad_limit": grads["grad_limit"], "grad_control": grads["grad_control"],
                           "ms": {n: t[0] for n, t in ms.items()},
                           "plain_ms": {n: t[1] for n, t in ms.items()},
                           "library_ms": library,
+                          "device_ms": {n: t[0] for n, t in dev.items()},
+                          "plain_device_ms": {n: t[1] for n, t in dev.items()},
+                          "library_device_ms": library_dev,
                           "attn_fwd_second_turn_ms": fwd_second_turn, **pair,
                           "bound_ms": {n: roofline.kernel_bound(n, (bh, nq, nk, d))["bound_ms"]
                                        for n in FLASH}}), flush=True)
@@ -462,20 +509,21 @@ def phase_kernels(device) -> dict:
     worst[PACKED], timed[PACKED], route_3d_ms = packed_kernel_checks(device, gen)
     return {"worst_abs_err": worst, "timed_shapes": {**TIMED_SHAPE, PACKED: PACKED_TIMED},
             "timed_ms": timed, "packed_vs_3d_route_ms": {
-                "packed_kernel": timed[PACKED][0], "3d_route": route_3d_ms,
+                "packed_kernel": timed[PACKED]["ms"], "3d_route": route_3d_ms,
                 "shape": PACKED_TIMED}}
 
 
 def packed_kernel_checks(device, gen):
     """The packed forward against its plain version at PACKED_SHAPES ->
-    (worst error, (kernel, plain, library ms) at PACKED_TIMED, ms of the 3-d
-    route at PACKED_TIMED: the head transposes into (B·H, N, D), the 3-d
-    kernel, and the transpose back, as `ops/attention.py` runs it)."""
+    (worst error, the times of the kernel, its plain version and the
+    library at PACKED_TIMED, ms of the 3-d route at PACKED_TIMED: the head
+    transposes into (B·H, N, D), the 3-d kernel, and the transpose back, as
+    `ops/attention.py` runs it)."""
     import torch
     import torch.nn.functional as F
     from einops import rearrange
 
-    from leco_tpu_torch.kernels import roofline
+    from leco_tpu_torch.kernels import roofline, timing
     from leco_tpu_torch.ops import flash_attention as fa
 
     worst, timed, route_3d_ms = 0.0, None, None
@@ -498,10 +546,9 @@ def packed_kernel_checks(device, gen):
         q4, k4, v4 = (t.view(b, t.shape[1], heads, c // heads).transpose(1, 2)
                       for t in (q, k, v))
         row = {"kernel": PACKED, "shape": list(shape), "max_abs_err": err, **o_check,
-               "ms": time_ms(lambda: fa.attn_fwd_packed(q, k, v, heads, scale)),
-               "plain_ms": time_ms(lambda: fa.attn_fwd_packed_plain(q, k, v, heads, scale)),
-               "library_ms": time_ms(
-                   lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
+               **kernel_times(lambda: fa.attn_fwd_packed(q, k, v, heads, scale),
+                              lambda: fa.attn_fwd_packed_plain(q, k, v, heads, scale),
+                              lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)),
                **roofline.kernel_bound(PACKED, shape)}
         if shape == PACKED_TIMED:
             def route_3d():
@@ -515,9 +562,10 @@ def packed_kernel_checks(device, gen):
             packed_ms = [row["ms"]]
             route_ms = [time_ms(route_3d), time_ms(route_3d)]
             packed_ms.append(time_ms(lambda: fa.attn_fwd_packed(q, k, v, heads, scale)))
-            timed = (row["ms"], row["plain_ms"], row["library_ms"])
+            timed = {key: row[key] for key in TIME_KEYS}
             route_3d_ms = statistics.median(route_ms)
-            row.update(route_3d_ms=route_3d_ms, ms_turns=packed_ms, route_3d_ms_turns=route_ms)
+            row.update(route_3d_ms=route_3d_ms, ms_turns=packed_ms, route_3d_ms_turns=route_ms,
+                       route_3d_device_ms=timing.device_ms(route_3d))
         print(json.dumps(row), flush=True)
         del q, k, v, o, o_ref
         torch.cuda.empty_cache()
@@ -532,15 +580,18 @@ def phase_fused_kernels(device) -> dict:
     padding before the activation, GroupNorm with its last group
     unnormalised, GEGLU without the last 64 of K); at the kernel's most
     frequent shape the kernel, the plain version and the library's call
-    (where one exists) timed, and the roofline bound. Also the conv core's
-    weight repack (kernel against plain, bitwise) and, beside the
-    GroupNorm-SiLU-conv, F.conv2d on the already-activated input: the conv
-    alone, not a call that computes the fused function."""
+    (where one exists) timed, both by CUDA events and by device time (a row
+    bound by bytes rotating over input copies for the latter), and the
+    roofline bound. Also the conv core's weight repack (kernel against
+    plain, bitwise) and two calls that are context, not calls that compute
+    the fused function: beside the GroupNorm-SiLU-conv, F.conv2d on the
+    already-activated input (the conv alone), and beside the GEGLU,
+    F.linear(x, W, b) (the GEMM alone)."""
     import torch
     import torch.nn.functional as F
 
     from leco_tpu_torch import testing
-    from leco_tpu_torch.kernels import roofline
+    from leco_tpu_torch.kernels import roofline, timing
     from leco_tpu_torch.ops import conv, geglu, gn_conv
     from leco_tpu_torch.ops import group_norm as gn
 
@@ -558,7 +609,10 @@ def phase_fused_kernels(device) -> dict:
     rows = []
     extra = {}
 
-    def held(name, shape, got, ref, control, kernel_fn, plain_fn, library_fn=None):
+    def held(name, shape, got, ref, control, kernel_fn, plain_fn, library_fn=None,
+             rotate=None):
+        """`rotate`: (input, fns_of) for a row bound by bytes, where
+        fns_of(copy) gives the three calls on one copy of the input."""
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got.float()).all()), f"{name} non-finite at {shape}")
         err = (got.float() - ref.float()).abs().max().item()
@@ -572,10 +626,17 @@ def phase_fused_kernels(device) -> dict:
         row = {"kernel": name, "shape": list(shape), "max_abs_err": err, "max_abs_ref": size,
                "limit": limit, "control_err": control_err}
         if FUSED_TIMED.get(name) == tuple(shape[:len(FUSED_TIMED[name])]) and name not in timed:
-            timed[name] = (time_ms(kernel_fn), time_ms(plain_fn),
-                           time_ms(library_fn) if library_fn else None)
-            row["ms"], row["plain_ms"], row["library_ms"] = timed[name]
-            row.update(roofline.kernel_bound(name, FUSED_TIMED[name]))
+            bound = roofline.kernel_bound(name, FUSED_TIMED[name])
+            rotated = None
+            if rotate is not None and bound["bound_by"] == "bytes":
+                src, fns_of = rotate
+                copies = [src.clone() for _ in range(
+                    timing.rotation_count(src.numel() * src.element_size()))]
+                per_copy = [fns_of(c) for c in copies]
+                rotated = [[fns[i] for fns in per_copy] for i in range(3)]
+                row["l2_rotation_copies"] = len(copies)
+            timed[name] = kernel_times(kernel_fn, plain_fn, library_fn, rotated)
+            row.update(timed[name], **bound)
         rows.append(row)
         print(json.dumps(row), flush=True)
         return row
@@ -601,8 +662,8 @@ def phase_fused_kernels(device) -> dict:
                    lambda: conv.conv3x3_gemm_plain(x, wt, bias, flip=dx),
                    lambda: F.conv2d(x, flipped, bias_bf16, padding=1))
         if "ms" in row:
-            extra["repack_ms"] = {"shape": [cout, cin], "kernel": time_ms(
-                lambda: conv.pack_weight(wt)), "plain": time_ms(lambda: conv.pack_weight_plain(wt))}
+            extra["repack_ms"] = {"shape": [cout, cin], **kernel_times(
+                lambda: conv.pack_weight(wt), lambda: conv.pack_weight_plain(wt))}
             print(json.dumps({"repack_ms": extra["repack_ms"]}), flush=True)
     for b, cin, h, w, cout in GNCONV_SHAPES:
         x = bf16((b, cin, h, w))
@@ -616,32 +677,48 @@ def phase_fused_kernels(device) -> dict:
                    lambda: gn_conv.gnconv3x3_plain(x, a, s, wt, bias))
         if "ms" in row:
             y, bias_bf16 = gn_conv.apply_affine_silu(x, a, s), bias.to(torch.bfloat16)
-            extra["gnconv3x3_conv_alone_ms"] = time_ms(
-                lambda: F.conv2d(y, wt, bias_bf16, padding=1))
-            print(json.dumps({"gnconv3x3_conv_alone_ms": extra["gnconv3x3_conv_alone_ms"],
-                              "shape": [b, cin, h, w, cout]}), flush=True)
+            alone = lambda: F.conv2d(y, wt, bias_bf16, padding=1)  # noqa: E731
+            extra["gnconv3x3_conv_alone_ms"] = time_ms(alone)
+            extra["gnconv3x3_conv_alone_device_ms"] = timing.device_ms(alone)
+            print(json.dumps({key: extra[key] for key in ("gnconv3x3_conv_alone_ms",
+                                                          "gnconv3x3_conv_alone_device_ms")}
+                             | {"shape": [b, cin, h, w, cout]}), flush=True)
     for b, c, h, w, eps, silu in GN_SHAPES:
         x = bf16((b, c, h, w), 2.0)
         scale, bias = fp32((c,), 0.1, 1.0), fp32((c,), 0.1)
         w16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+
+        def gn_fns(t, scale=scale, bias=bias, w16=w16, b16=b16, eps=eps, silu=silu):
+            return (lambda: gn.group_norm_silu(t, scale, bias, 32, eps, silu),
+                    lambda: gn.group_norm_silu_plain(t, scale, bias, 32, eps, silu),
+                    None if silu else lambda: F.group_norm(t, 32, w16, b16, eps))
+
         held("group_norm", (b, c, h, w, eps, silu),
              gn.group_norm_silu(x, scale, bias, 32, eps, silu),
              gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu),
              testing.group_norm_control(x, scale, bias, 32, eps, silu),
-             lambda: gn.group_norm_silu(x, scale, bias, 32, eps, silu),
-             lambda: gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu),
-             None if silu else lambda: F.group_norm(x, 32, w16, b16, eps))
+             *gn_fns(x), rotate=(x, gn_fns))
     for m, k, n, r in GEGLU_SHAPES:
         x, wt, bias = bf16((m, k)), bf16((2 * n, k), k**-0.5), fp32((2 * n,))
         xd, up = (bf16((m, r)), bf16((2 * n, r), 0.1)) if r else (None, None)
-        held("geglu", (m, k, n, r), geglu.geglu_gemm(x, wt, bias, xd, up),
-             geglu.geglu_gemm_plain(x, wt, bias, xd, up),
-             testing.geglu_control(x, wt, bias, xd, up),
-             lambda: geglu.geglu_gemm(x, wt, bias, xd, up),
-             lambda: geglu.geglu_gemm_plain(x, wt, bias, xd, up))
+        row = held("geglu", (m, k, n, r), geglu.geglu_gemm(x, wt, bias, xd, up),
+                   geglu.geglu_gemm_plain(x, wt, bias, xd, up),
+                   testing.geglu_control(x, wt, bias, xd, up),
+                   lambda: geglu.geglu_gemm(x, wt, bias, xd, up),
+                   lambda: geglu.geglu_gemm_plain(x, wt, bias, xd, up))
+        if "ms" in row:
+            bias_bf16 = bias.to(torch.bfloat16)
+            alone = lambda: F.linear(x, wt, bias_bf16)  # noqa: E731
+            extra["geglu_gemm_alone_ms"] = time_ms(alone)
+            extra["geglu_gemm_alone_device_ms"] = timing.device_ms(alone)
+            print(json.dumps({key: extra[key] for key in ("geglu_gemm_alone_ms",
+                                                          "geglu_gemm_alone_device_ms")}
+                             | {"shape": [m, k, n, r]}), flush=True)
     torch.cuda.empty_cache()
     check(set(timed) == set(FUSED), f"timed {sorted(timed)}")
-    check(set(extra) == {"repack_ms", "gnconv3x3_conv_alone_ms"}, f"extra timings {extra}")
+    check(set(extra) == {"repack_ms", "gnconv3x3_conv_alone_ms", "gnconv3x3_conv_alone_device_ms",
+                         "geglu_gemm_alone_ms", "geglu_gemm_alone_device_ms"},
+          f"extra timings {extra}")
     return {"worst_abs_err": worst, "timed_shapes": FUSED_TIMED, "timed_ms": timed,
             "rtol": RTOL_FUSED, "shapes_checked": len(rows), **extra}
 
@@ -756,6 +833,14 @@ def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
     top_fused = sorted(fused_kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
     leco_fused_us = sum(e.self_device_time_total for e in fused_kernels
                         if "leco::" in e.key and "flash_" not in e.key)
+    # each fused kernel's device time in the step: (ms, calls, share of busy)
+    by_kernel = {}
+    for name, fragment in (("geglu", "geglu_kernel"), ("group_norm", "group_norm_kernel"),
+                           ("conv3x3 and gnconv3x3", "conv3x3_kernel"),
+                           ("conv3x3 weight repack", "pack_weight_kernel")):
+        hits = [e for e in fused_kernels if fragment in e.key]
+        us = sum(e.self_device_time_total for e in hits)
+        by_kernel[name] = [us / 1e3, sum(e.count for e in hits), us / busy_fused_us]
     knob_walls = {"on": [], "off": []}
     for side in ("off", "on", "on", "off"):
         with fused_knobs(side == "on"):
@@ -776,6 +861,7 @@ def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
             "device_busy_s": busy_fused_us / 1e6,
             "device_idle_share": 1.0 - busy_fused_us / 1e6 / min(knob_walls["on"]),
             "fused_kernels_share_of_busy": leco_fused_us / busy_fused_us,
+            "fused_kernel_ms_calls_share": by_kernel,
             "kernel_launches": sum(e.count for e in fused_kernels),
             "top_kernels": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
                             for e in top_fused],
@@ -1087,12 +1173,15 @@ def main() -> None:
             "replaces": replaces,
             "launches": measured[name][1]["launches"][name],
             "max_abs_err": measured[name][0]["worst_abs_err"][name],
-            "ms": measured[name][0]["timed_ms"][name][0],
-            "plain_ms": measured[name][0]["timed_ms"][name][1],
+            "ms": measured[name][0]["timed_ms"][name]["ms"],
+            "plain_ms": measured[name][0]["timed_ms"][name]["plain_ms"],
             # the least time for the same work at the timed shape
             **roofline.kernel_bound(name, timed_shapes[name]),
             # one PyTorch call that computes the same function, or null
-            "library_ms": measured[name][0]["timed_ms"][name][2],
+            "library_ms": measured[name][0]["timed_ms"][name]["library_ms"],
+            # the device's own time per call (torch.profiler), the same three
+            **{key: measured[name][0]["timed_ms"][name][key]
+               for key in ("device_ms", "plain_device_ms", "library_device_ms")},
         }
         for name, (source, replaces) in KERNELS.items()
     ]}), flush=True)

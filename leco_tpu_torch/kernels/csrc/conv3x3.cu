@@ -541,13 +541,7 @@ __global__ void pack_weight_kernel(const bf16* __restrict__ w, bf16* __restrict_
 // long K loop on a few SMs. Every split gets at least one chunk.
 // (ops/conv.py::tile_plan says the same.)
 inline int split_k(long long blocks, int chunks) {
-  static const int sms = [] {
-    int device = 0, n = 0;
-    if (cudaGetDevice(&device) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-      return 132;
-    return n;
-  }();
+  const int sms = sm90::sm_count();
   if (2 * blocks >= sms) return 1;
   int splits = static_cast<int>(std::min<long long>(8, sms / blocks));
   splits = std::max(1, std::min(splits, chunks));

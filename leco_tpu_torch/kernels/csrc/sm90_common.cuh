@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels (forward,
-// dQ, dK/dV) and the 3x3 conv core: TMA tile loads and stores through a
-// CUtensorMap, mbarriers, named barriers, register rebalancing, warpgroup
-// MMAs (wgmma) whose shared-memory operands are swizzled (128 bytes; the
-// conv core's input also 64 and 32), and the moves between an accumulator
-// fragment and such a tile.
+// dQ, dK/dV), the 3x3 conv core, the GEGLU projection and the GroupNorm:
+// TMA tile loads and stores through a CUtensorMap, mbarriers, named
+// barriers, cluster barriers and distributed shared memory, register
+// rebalancing, warpgroup MMAs (wgmma) whose shared-memory operands are
+// swizzled (128 bytes; the conv core's input also 64 and 32), and the moves
+// between an accumulator fragment and such a tile.
 //
 // Shared-memory tile layout (what TMA writes under CU_TENSOR_MAP_SWIZZLE_128B
 // and what the descriptors of `smem_desc` read): a (rows, 64 * blocks) bf16
@@ -94,10 +95,20 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t sr
       : "memory");
 }
 
+// close the group of stores issued so far by this thread
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// wait until this thread's committed stores have read their shared memory
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
 // wait until the stores issued so far have read their shared memory
 __device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  tma_store_commit();
+  tma_store_wait_read();
 }
 
 // make this thread's ordinary shared-memory writes visible to TMA and wgmma
@@ -404,6 +415,21 @@ __device__ __forceinline__ void wgmma_rs_mn<160>(float* d, const uint32_t* a, ui
         "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---- host -------------------------------------------------------------------
+
+// the current device's SM count, asked once (132 on an H100 SXM if the
+// query fails)
+inline int sm_count() {
+  static const int sms = [] {
+    int device = 0, count = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+      return 132;
+    return count;
+  }();
+  return sms;
 }
 
 // ---- host: tensor maps -----------------------------------------------------

@@ -4,8 +4,9 @@ the projection, and the fused Hopper kernel with its autograd Function.
 Counterpart of `leco_tpu/ops/geglu.py`. The transformer feed-forward's first
 half is `proj = x W^T + b (+ LoRA); value, gate = split(proj);
 out = value * gelu(gate)`. The TPU kernel `_kernel` becomes
-`leco_tpu_torch/kernels/csrc/geglu.cu`: both GEMM halves, the rank-r LoRA
-delta and the gelu·mul epilogue on the SM, writing only (M, N).
+`leco_tpu_torch/kernels/csrc/geglu.cu`, a persistent wgmma + TMA kernel:
+both GEMM halves, the rank-r LoRA delta and the gelu·mul epilogue on the SM,
+writing only (M, N).
 
 Layouts are the port's (torch Linear): weight (2N, K), bias (2N), the LoRA
 delta's xd = (x down^T) * scale (..., r) and up (2N, r). The JAX package
@@ -133,7 +134,7 @@ def geglu_gemm(x2, weight, bias, xd=None, up=None):
     if r > MAX_RANK:
         raise ValueError(f"{name}: LoRA rank {r} > {MAX_RANK}")
     dev = x2.device
-    # x and W are read 16 bytes at a time
+    # x and W are read by TMA, whose tensor maps need 16-byte starts
     launch.check(name, "x", x2, torch.bfloat16, (m, k), dev, aligned=True)
     launch.check(name, "weight", weight, torch.bfloat16, (n2, k), dev, aligned=True)
     if bias is not None:

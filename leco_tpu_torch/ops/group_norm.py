@@ -3,9 +3,10 @@ plain version, the reference form and the autograd Function.
 
 Counterpart of `leco_tpu/ops/group_norm.py`. The TPU kernel `_gn_kernel`
 becomes `leco_tpu_torch/kernels/csrc/group_norm.cu`, written in CUDA rather
-than Triton: it is one reduction per (batch, group) and one elementwise pass,
-with no tensor-core work and nothing that needs hand-managed shared memory,
-and CUDA keeps it in the one nvcc build with the other kernels.
+than Triton: it splits each (batch, group) over a thread-block cluster whose
+blocks keep their share of x in shared memory (so x is read once) and
+combine their partial sums through distributed shared memory, and Triton
+has neither clusters nor distributed shared memory.
 
 Layout is the port's NCHW, x (B, C, H, W); the JAX package takes NHWC. The
 knob `LECO_TPU_FUSED_GN=1` (read at call time; the JAX package reads it at

@@ -378,40 +378,6 @@ def test_conv_core_refuses_a_misaligned_pointer(device):
         gn_conv.gnconv3x3(x, a, a, wt, bias)
 
 
-@pytest.mark.parametrize("b,c,h,w,eps,silu", [(2, 320, 64, 64, 1e-6, False),
-                                              (1, 2560, 16, 16, 1e-5, True),
-                                              (3, 1280, 8, 8, 1e-6, False),
-                                              (1, 320, 5, 7, 1e-5, True)])
-def test_group_norm_matches_plain(device, b, c, h, w, eps, silu):
-    gen = torch.Generator(device).manual_seed(4)
-    x = (torch.randn((b, c, h, w), generator=gen, device=device) * 3 + 1).to(torch.bfloat16)
-    scale = 1 + 0.1 * torch.randn((c,), generator=gen, device=device)
-    bias = 0.1 * torch.randn((c,), generator=gen, device=device)
-    before = gn.group_norm_silu.launches
-    got = gn.group_norm_silu(x, scale, bias, 32, eps, silu)
-    torch.cuda.synchronize()
-    assert gn.group_norm_silu.launches - before == 1
-    _close(got, gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu),
-           testing.group_norm_control(x, scale, bias, 32, eps, silu))
-
-
-@pytest.mark.parametrize("m,k,n,r", [(8192, 320, 1280, 4), (2048, 640, 2560, 0),
-                                     (256, 1280, 5120, 4), (100, 40, 24, 3)])
-def test_geglu_matches_plain(device, m, k, n, r):
-    gen = torch.Generator(device).manual_seed(5)
-    x = _bf16(gen, (m, k), device)
-    wt = _bf16(gen, (2 * n, k), device, k**-0.5)
-    bias = torch.randn((2 * n,), generator=gen, device=device)
-    xd = _bf16(gen, (m, r), device) if r else None
-    up = _bf16(gen, (2 * n, r), device) if r else None
-    before = geglu.geglu_gemm.launches
-    got = geglu.geglu_gemm(x, wt, bias, xd, up)
-    torch.cuda.synchronize()
-    assert geglu.geglu_gemm.launches - before == 1
-    control = testing.geglu_control(x, wt, bias, xd, up) if k > testing.CONTROL_DROPPED else None
-    _close(got, geglu.geglu_gemm_plain(x, wt, bias, xd, up), control)
-
-
 def test_fused_wrappers_refuse_what_the_kernels_do_not_take(device):
     x = torch.zeros((1, 128, 8, 8), device=device)
     w = torch.zeros((128, 128, 3, 3), device=device)
@@ -425,3 +391,109 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError):  # K = 12 is not a multiple of 8
         geglu.geglu_gemm(torch.zeros((4, 12), device=device, dtype=torch.bfloat16),
                          torch.zeros((16, 12), device=device, dtype=torch.bfloat16), None)
+
+
+# the GEGLU projection (wgmma, TMA, persistent): every chip_smoke shape
+# (SD1.5's three levels at B 2 and 3, and the target's rank-4 LoRA), a ragged
+# M (1, 100, 8191), K not a multiple of 64 (40, 72, 328), N not a multiple
+# of the 64- or 128-wide tile (8, 24, 1288), every LoRA rank 1-16, and
+# SD1.5's mid block (M 128 at batch 2, where the 64-wide tile is taken)
+GEGLU_CORE_SHAPES = [
+    (8192, 320, 1280, 0), (2048, 640, 2560, 0), (512, 1280, 5120, 0), (12288, 320, 1280, 0),
+    (4096, 320, 1280, 4), (1024, 640, 2560, 4), (256, 1280, 5120, 4), (8192, 320, 1280, 4),
+    (1, 320, 1280, 0), (100, 320, 1280, 4), (8191, 320, 1280, 1), (100, 40, 24, 3),
+    (512, 72, 640, 0), (1000, 328, 1280, 16), (256, 320, 8, 4), (300, 320, 1288, 0),
+    (128, 1280, 5120, 0), (128, 1280, 5120, 4), (64, 640, 2560, 16),
+]
+
+
+def _geglu_inputs(gen, device, m, k, n, r, with_bias=True):
+    x = _bf16(gen, (m, k), device)
+    wt = _bf16(gen, (2 * n, k), device, k**-0.5)
+    bias = torch.randn((2 * n,), generator=gen, device=device) if with_bias else None
+    xd = _bf16(gen, (m, r), device) if r else None
+    up = _bf16(gen, (2 * n, r), device, 0.5) if r else None
+    return x, wt, bias, xd, up
+
+
+@pytest.mark.parametrize("m,k,n,r", GEGLU_CORE_SHAPES)
+def test_geglu_matches_plain(device, m, k, n, r):
+    gen = torch.Generator(device).manual_seed(5)
+    args = _geglu_inputs(gen, device, m, k, n, r)
+    before = geglu.geglu_gemm.launches
+    got = geglu.geglu_gemm(*args)
+    torch.cuda.synchronize()
+    assert geglu.geglu_gemm.launches - before == 1
+    control = testing.geglu_control(*args) if k > testing.CONTROL_DROPPED else None
+    _close(got, geglu.geglu_gemm_plain(*args), control)
+    assert torch.equal(geglu.geglu_gemm(*args), got)  # two calls, the same bits
+
+
+@pytest.mark.parametrize("m,k,n,r", [(8192, 320, 1280, 0), (100, 72, 8, 4),
+                                     (128, 1280, 5120, 16)])
+def test_geglu_core_without_bias(device, m, k, n, r):
+    gen = torch.Generator(device).manual_seed(17)
+    args = _geglu_inputs(gen, device, m, k, n, r, with_bias=False)
+    _close(geglu.geglu_gemm(*args), geglu.geglu_gemm_plain(*args))
+
+
+def test_geglu_refuses_a_misaligned_pointer(device):
+    x = torch.zeros(64 * 320 + 1, device=device, dtype=torch.bfloat16)[1:].view(64, 320)
+    wt = torch.zeros((2 * 1280, 320), device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # off the 16-byte boundary that TMA needs
+        geglu.geglu_gemm(x, wt, None)
+    with pytest.raises(ValueError):
+        geglu.geglu_gemm(wt[:64].contiguous(), torch.zeros(
+            2 * 1280 * 320 + 1, device=device, dtype=torch.bfloat16)[1:].view(2 * 1280, 320), None)
+
+
+# the GroupNorm (a cluster per (batch, group), one read): every chip_smoke
+# shape, n % 8 != 0 (3 x 5 and 5 x 7 images: groups start off 16-byte
+# boundaries), the largest group kept on chip (2, 960, 64^2: n 122,880), a
+# group that takes the re-reading route (1, 2560, 64^2: n 327,680), C = 32
+# (one channel a group), B = 1 with SiLU on and off
+GN_CORE_SHAPES = [
+    (1, 2560, 16, 16, 1e-5, True), (3, 1280, 8, 8, 1e-6, False), (1, 320, 5, 7, 1e-5, True),
+    (2, 320, 64, 64, 1e-6, False), (2, 640, 32, 32, 1e-6, False),
+    (2, 1280, 16, 16, 1e-6, False), (2, 1280, 8, 8, 1e-6, False),
+    (2, 320, 64, 64, 1e-5, True), (3, 320, 64, 64, 1e-6, False),
+    (1, 320, 64, 64, 1e-6, False),
+    (2, 320, 3, 5, 1e-5, False), (2, 320, 3, 5, 1e-5, True),
+    (2, 960, 64, 64, 1e-5, True), (1, 2560, 64, 64, 1e-6, False),
+    (2, 32, 16, 16, 1e-6, True), (1, 32, 7, 9, 1e-6, False),
+    (1, 640, 32, 32, 1e-6, True), (1, 640, 32, 32, 1e-6, False),
+]
+
+
+def _gn_inputs(gen, device, b, c, h, w):
+    x = (torch.randn((b, c, h, w), generator=gen, device=device) * 3 + 1).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn((c,), generator=gen, device=device)
+    bias = 0.1 * torch.randn((c,), generator=gen, device=device)
+    return x, scale, bias
+
+
+@pytest.mark.parametrize("b,c,h,w,eps,silu", GN_CORE_SHAPES)
+def test_group_norm_matches_plain(device, b, c, h, w, eps, silu):
+    gen = torch.Generator(device).manual_seed(4)
+    x, scale, bias = _gn_inputs(gen, device, b, c, h, w)
+    before = gn.group_norm_silu.launches
+    got = gn.group_norm_silu(x, scale, bias, 32, eps, silu)
+    torch.cuda.synchronize()
+    assert gn.group_norm_silu.launches - before == 1
+    _close(got, gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu),
+           testing.group_norm_control(x, scale, bias, 32, eps, silu))
+    assert torch.equal(gn.group_norm_silu(x, scale, bias, 32, eps, silu), got)  # the same bits
+
+
+@pytest.mark.parametrize("b,c,h,w", [(2, 320, 64, 64), (2, 320, 3, 5)])
+def test_group_norm_core_takes_a_misaligned_input(device, b, c, h, w):
+    """x off a 16-byte boundary (and so off y's alignment): every element
+    goes one at a time, with the same result."""
+    gen = torch.Generator(device).manual_seed(19)
+    x, scale, bias = _gn_inputs(gen, device, b, c, h, w)
+    shifted = torch.empty(x.numel() + 1, device=device, dtype=torch.bfloat16)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    got = gn.group_norm_silu(shifted, scale, bias, 32, 1e-6, True)
+    _close(got, gn.group_norm_silu_plain(x, scale, bias, 32, 1e-6, True),
+           testing.group_norm_control(x, scale, bias, 32, 1e-6, True))
