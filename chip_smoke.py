@@ -61,7 +61,22 @@ Phases, each printing its result on a line of its own:
                examples/prompts.yaml as it is (512 px, batch 2); run with
                LECO_FLASH_PACKED unset (the 3-d flash kernels) and set to 1
                (the packed kernel), each with exact launch counts, finite
-               losses and saves that read back equal.
+               losses and saves that read back equal;
+ 10. recipes — every SD1.x/2.x training option of the JAX trainer, cuDNN
+               deterministic: examples/unreal_config.yaml and
+               unreal_prompts.yaml (SD2.1, Lion, cosine, rank 16, 512/640/768
+               px at batch 3/2/1) through `main()` on phase cli's file, 6
+               iterations with save_state and ema_decay (losses finite, lr
+               the float32 cosine's, exact launches, saves read back); the
+               same run interrupted after iteration 3 and resumed from step_2
+               (losses and weights within 1e-5 of the first run's, a control
+               that must fail); ddpm, lms and euler_a through train() on the
+               SD1.5 bundle; the eight optimizers on the unreal LoRA tree, card
+               against CPU, with each step()'s device time; checkpoint_unet off
+               and on at 768 px (equal loss, grads within 1e-2, one target
+               forward's more forward launches, peak memory); the knobs
+               LECO_FLASH_BWD=xla (no backward kernel, the kernels' grads) and
+               LECO_FLASH_CROSS=1 (cross-attention through the forward kernel).
 The knobs are the JAX package's: LECO_CONV_BACKEND=gemm, LECO_RESNET_FUSED=1,
 LECO_TPU_FUSED_GN=1, LECO_GEGLU=fused, and LECO_FLASH_PACKED=1. Then a JSON
 line with every kernel's launches, error, times (kernel, plain, library;
@@ -75,6 +90,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -88,9 +104,12 @@ REPO = Path(__file__).resolve().parent
 # (BH, Nq, Nk, D) with BH = B * 8 heads: the SD1.5 self-attention shapes at
 # 512 px (levels 0, 1, 2) at the inner loop's B = 2, the references' B = 3
 # (level 0) and the differentiated target's B = 1, the one batch whose
-# backward runs; then a masked key count (Nk = 77); then SD2.1's (every head
-# 64 wide, heads 5 / 10 / 20) at the default recipe's batch 2: the inner
-# loop's B = 4 at levels 0-2 and the target's B = 2 at level 0
+# backward runs; then a masked key count (Nk = 77), and SD1.5's level-0
+# cross-attention over the 77 text tokens, which LECO_FLASH_CROSS=1 sends to
+# the kernels (at the inner loop's B = 2 and the target's B = 1); then
+# SD2.1's (every head 64 wide, heads 5 / 10 / 20) at the default recipe's
+# batch 2: the inner loop's B = 4 at levels 0-2 and the target's B = 2 at
+# level 0
 KERNEL_SHAPES = [
     (16, 4096, 4096, 40),
     (24, 4096, 4096, 40),
@@ -101,6 +120,8 @@ KERNEL_SHAPES = [
     (8, 256, 256, 160),
     (16, 1024, 1024, 64),
     (16, 256, 77, 40),
+    (16, 4096, 77, 40),
+    (8, 4096, 77, 40),
     (20, 4096, 4096, 64),
     (10, 4096, 4096, 64),
     (40, 1024, 1024, 64),
@@ -228,6 +249,34 @@ FUSED_TIMED = {
     "group_norm": (2, 320, 64, 64, 1e-6, False),
     "geglu": (2 * 4096, 320, 1280, 0),
 }
+# phase recipes: the unreal recipe cut to UNREAL_ITERATIONS iterations with a
+# save (and a full-state snapshot) every UNREAL_PER_STEPS
+UNREAL_ITERATIONS = 6
+UNREAL_PER_STEPS = 2
+UNREAL_EMA_DECAY = 0.999
+# a resumed run against the uninterrupted one: the losses relative to each
+# loss, the saved weights relative to their largest magnitude (the control,
+# run 1's weights UNREAL_PER_STEPS iterations before the end, must fail it)
+RTOL_RESUME = 1e-5
+# the single steps of phase recipes (checkpoint_unet at SD2.1's largest
+# unreal resolution, the knobs and the schedulers at SD1.5's 512 px)
+STEP_TIMESTEPS_TO = 2
+CKPT_RESOLUTION = 768
+SD15_RESOLUTION = 512
+# checkpoint_unet on against off: the LoRA grads relative to their largest
+# magnitude (the control: the same step on other latents must fail it)
+RTOL_CKPT_GRADS = 1e-2
+# (name, lr, optimizer_args): the recipe's lr, lr 1 for the learning-rate-free
+# ones with their first distance estimate at 1e-3 (1e-6 moves no weight in
+# OPTIMIZER_STEPS steps); the card's weights are held to the CPU's within
+# RTOL_OPTIMIZER x max|w| (the same float32 operations; the D-Adaptation
+# sums in fp64 in other orders)
+OPTIMIZERS = [("adamw", 1e-4, ""), ("adam", 1e-4, ""), ("lion", 1e-4, ""),
+              ("prodigy", 1.0, "estim_lr0=1e-3"), ("dadaptadam", 1.0, "estim_lr0=1e-3"),
+              ("dadaptlion", 1.0, "d0=1e-3"), ("adam8bit", 1e-4, ""), ("lion8bit", 1e-4, "")]
+OPTIMIZER_STEPS = 5
+RTOL_OPTIMIZER = 1e-5
+SD21_CHECKPOINT = Path("sd21") / "v2-1_random.safetensors"
 
 
 def wrappers() -> dict:
@@ -253,22 +302,27 @@ def launches() -> dict[str, int]:
 
 
 @contextlib.contextmanager
-def fused_knobs(on: bool):
-    """The fused configuration's knobs set (or unset) inside the block."""
-    saved = {k: os.environ.get(k) for k in FUSED_KNOBS}
-    for k, v in FUSED_KNOBS.items():
-        if on:
-            os.environ[k] = v
-        else:
-            os.environ.pop(k, None)
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
+def environ(values: dict):
+    """Each variable of `values` set (None: unset) inside the block."""
+    saved = {k: os.environ.get(k) for k in values}
+
+    def apply(settings: dict) -> None:
+        for k, v in settings.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+    apply(values)
+    try:
+        yield
+    finally:
+        apply(saved)
+
+
+def fused_knobs(on: bool):
+    """The fused configuration's knobs set (or unset) inside the block."""
+    return environ({k: v if on else None for k, v in FUSED_KNOBS.items()})
 
 
 _PHASE_START = [time.perf_counter()]
@@ -780,9 +834,9 @@ def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
     the kernels that take its time. Then the same step with the kernels and
     with plain attention, in turns (flash, plain, plain, flash)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from leco_tpu_torch.kernels import timing
     from leco_tpu_torch.prompts import PromptSettings
     from leco_tpu_torch.train import trainer
     from leco_tpu_torch.train.optim import get_optimizer
@@ -807,8 +861,8 @@ def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
         wall = run()
     # device-side events only: the kernels (an op's row would count its
     # kernels' time a second time)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = [e for e in timing.device_events(prof.key_averages())
+               if e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     check(busy_us > 0, "the profiler saw no device time")
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
@@ -826,8 +880,8 @@ def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
         run()  # warm-up: cuDNN picks algorithms for the backward's convs
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall_fused = run()
-    fused_kernels = [e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    fused_kernels = [e for e in timing.device_events(prof.key_averages())
+                     if e.self_device_time_total > 0]
     busy_fused_us = sum(e.self_device_time_total for e in fused_kernels)
     check(busy_fused_us > 0, "the profiler saw no device time with the knobs on")
     top_fused = sorted(fused_kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
@@ -997,15 +1051,11 @@ def phase_cli(device, out_dir: Path) -> dict:
 
     from leco_tpu_torch import testing
     from leco_tpu_torch.lora import count_lora_modules, read_safetensors
-    from leco_tpu_torch.models import loader
-    from leco_tpu_torch.train_lora import main as cli_main
-    from leco_tpu_torch.train_lora import parse_args
     from leco_tpu_torch.utils import yaml_subset
 
     t0 = time.perf_counter()
     ckpt = testing.write_single_file_checkpoint(
-        out_dir / "sd21" / "v2-1_random.safetensors", seed=0, dtype=torch.float16,
-        device=device)
+        out_dir / SD21_CHECKPOINT, seed=0, dtype=torch.float16, device=device)
     write_seconds = time.perf_counter() - t0
     shapes = safetensors_shapes(ckpt)
     unet_keys = {k: s for k, s in shapes.items() if k.startswith("model.diffusion_model.")}
@@ -1031,37 +1081,9 @@ def phase_cli(device, out_dir: Path) -> dict:
         name = "packed" if packed else "default"
         save_dir = out_dir / name
         config["save"]["path"] = str(save_dir)
-        config_path = out_dir / f"config_{name}.yaml"
-        write_config(config, config_path)
-        stamps, load_end = [], []
-        real_load = loader.load_models
-
-        def timed_load(*args, **kwargs):  # observe when loading ends
-            models = real_load(*args, **kwargs)
-            torch.cuda.synchronize()
-            load_end.append(time.perf_counter())
-            return models
-
-        saved_env = os.environ.pop("LECO_FLASH_PACKED", None)
-        if packed:
-            os.environ["LECO_FLASH_PACKED"] = "1"
-        loader.load_models = timed_load
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launches()
-            t0 = time.perf_counter()
-            result = cli_main(parse_args(["--config_file", str(config_path)]),
-                              on_step=lambda i, loss: stamps.append(time.perf_counter()))
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            counts = launches()
-        finally:
-            loader.load_models = real_load
-            os.environ.pop("LECO_FLASH_PACKED", None)
-            if saved_env is not None:
-                os.environ["LECO_FLASH_PACKED"] = saved_env
+        with environ({"LECO_FLASH_PACKED": "1" if packed else None}):
+            run = run_cli(config, out_dir / f"config_{name}.yaml")
+        result, counts = run["result"], run["launches"]
 
         losses = result["losses"]
         check(len(losses) == iterations, f"{name}: {len(losses)} losses")
@@ -1093,18 +1115,16 @@ def phase_cli(device, out_dir: Path) -> dict:
             check(torch.equal(state[key], v.to(torch.bfloat16)), f"{name}: saved {key} differs")
         check('"v_pred": true' in metadata["config"], f"{name}: metadata")
 
-        per_iter = [b - a for a, b in zip(load_end + stamps[:-1], stamps)]
+        per_iter = iteration_seconds(run)
         print(f"cli {name}: seconds per iteration {json.dumps(per_iter)} "
-              f"(timesteps_to {tsto}), peak "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+              f"(timesteps_to {tsto}), peak {run['peak_mem_gb']:.2f} GiB", flush=True)
         runs[name] = {
             "losses": losses, "timesteps_to": tsto, "launches": counts,
-            "seconds": seconds, "load_seconds": load_end[0] - t0,
-            "seconds_per_iteration": per_iter,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "seconds": run["seconds"], "load_seconds": run["load_end"][0] - run["t0"],
+            "seconds_per_iteration": per_iter, "peak_mem_gb": run["peak_mem_gb"],
             "lora_layers": n_layers,
         }
-        del result, state
+        del run, result, state
     # same weights, seed and schedule: the first loss (forwards only, before
     # any update) on the packed kernel is the 3-d kernels' up to the order of
     # cuBLAS sums elsewhere in the UNet
@@ -1113,6 +1133,428 @@ def phase_cli(device, out_dir: Path) -> dict:
     check(abs(a - b) <= 2e-2 * abs(a), f"first loss {a} (3-d) vs {b} (packed)")
     return {"checkpoint_gib": ckpt.stat().st_size / 2**30, "write_seconds": write_seconds,
             **runs}
+
+
+def lora_grads(bundle) -> dict:
+    return {k: p.grad.detach().float().clone() for k, p in bundle.lora_params.items()}
+
+
+def grads_gate(got: dict, ref: dict, control: dict, rtol: float, what: str) -> dict:
+    """Hold LoRA grads to rtol x max|ref| over the whole tree, and check that
+    this limit fails `control` (the grads of the same step on other
+    latents) -> the error, the limit, the control's error, bitwise equal."""
+    import torch
+
+    size = max(v.abs().max().item() for v in ref.values())
+    err = max((got[k] - v).abs().max().item() for k, v in ref.items())
+    control_err = max((control[k] - v).abs().max().item() for k, v in ref.items())
+    limit = rtol * size
+    check(err <= limit, f"{what}: LoRA grads differ by {err} > {rtol} x {size}")
+    check(control_err > limit, f"{what}: the limit {limit} passes the control ({control_err})")
+    return {"grad_err": err, "grad_limit": limit, "grad_control": control_err,
+            "bitwise": all(torch.equal(got[k], v) for k, v in ref.items())}
+
+
+def unreal_config(ckpt: Path, save_dir: Path) -> dict:
+    """examples/unreal_config.yaml as it is, but for the checkpoint, the
+    iterations, the save path and cadence, save_state, ema_decay and a seed
+    (the recipe sets none, and an unseeded run draws its own schedule, so
+    no other run could replay it)."""
+    from leco_tpu_torch.utils import yaml_subset
+
+    config = yaml_subset.load(REPO / "examples" / "unreal_config.yaml")
+    config["prompts_file"] = str(REPO / "examples" / "unreal_prompts.yaml")
+    config["pretrained_model"]["name_or_path"] = str(ckpt)
+    config["train"].update(iterations=UNREAL_ITERATIONS, save_state=True,
+                           ema_decay=UNREAL_EMA_DECAY, seed=0)
+    config["save"].update(path=str(save_dir), per_steps=UNREAL_PER_STEPS)
+    return config
+
+
+def run_cli(config: dict, config_path: Path, on_step=None) -> dict:
+    """`main()` of the port's CLI on `config` with every launch count at 0
+    before it -> {"result", "launches", "seconds", "stamps", "load_end",
+    "peak_mem_gb"}. `wandb` is made unimportable: `use_wandb: true` then
+    takes the JAX trainer's "not installed" path and nothing reaches a
+    network."""
+    import torch
+
+    from leco_tpu_torch.models import loader
+    from leco_tpu_torch.train_lora import main as cli_main
+    from leco_tpu_torch.train_lora import parse_args
+
+    write_config(config, config_path)
+    stamps, load_end = [], []
+    real_load = loader.load_models
+
+    def timed_load(*args, **kwargs):
+        models = real_load(*args, **kwargs)
+        torch.cuda.synchronize()
+        load_end.append(time.perf_counter())
+        return models
+
+    def hook(i, loss):
+        stamps.append(time.perf_counter())
+        if on_step is not None:
+            on_step(i, loss)
+
+    saved_wandb = sys.modules.get("wandb", "absent")
+    sys.modules["wandb"] = None
+    loader.load_models = timed_load
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = {"result": None}
+    try:
+        out["result"] = cli_main(parse_args(["--config_file", str(config_path)]), on_step=hook)
+    finally:
+        loader.load_models = real_load
+        if saved_wandb == "absent":
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved_wandb
+        torch.cuda.synchronize()
+        out.update(launches=launches(), seconds=time.perf_counter() - t0, stamps=stamps,
+                   load_end=load_end, t0=t0,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def iteration_seconds(run: dict) -> list[float]:
+    """Host seconds of each iteration of a `run_cli` run, the first from the
+    end of loading."""
+    return [b - a for a, b in zip(run["load_end"] + run["stamps"][:-1], run["stamps"])]
+
+
+class StopRun(Exception):
+    """Raised by an on_step hook to interrupt a run."""
+
+
+def flash_launches(forwards: int, backwards: int, per_forward: int = FLASH_ATTENTIONS_PER_FORWARD):
+    return {**{name: 0 for name in KERNELS}, "attn_fwd": per_forward * forwards,
+            "attn_bwd_dq": per_forward * backwards, "attn_bwd_dkv": per_forward * backwards}
+
+
+def phase_recipes(device, ckpt: Path, out_dir: Path) -> dict:
+    """Every SD1.x/2.x training option of the JAX trainer on the card:
+    1. examples/unreal_config.yaml + unreal_prompts.yaml (Lion, cosine,
+       rank 16, the 12-pair multi-resolution prompts: 512 px batch 3, 640 px
+       batch 2, 768 px batch 1) through the CLI on the random full-width
+       SD2.1 file of phase cli, UNREAL_ITERATIONS iterations, with
+       save_state and ema_decay;
+    2. the same run interrupted after iteration 3 and resumed from its
+       newest snapshot (step_2), against run 1;
+    3. ddpm, lms and euler_a on the SD1.5 bundle through train();
+    4. the eight optimizers on run 1's LoRA tree, card against CPU;
+    5. checkpoint_unet: one SD2.1 768 px step with it off and on;
+    6. the knobs LECO_FLASH_BWD=xla and LECO_FLASH_CROSS=1 on SD1.5 steps.
+    cuDNN runs deterministic algorithms here (a nondeterministic conv
+    backward alone would move Lion's signs between two equal runs)."""
+    import numpy as np
+    import torch
+
+    from leco_tpu_torch.lora import LoRASpec, read_safetensors
+    from leco_tpu_torch.models import loader
+    from leco_tpu_torch.ops.schedulers import create_noise_scheduler
+    from leco_tpu_torch.prompts import PromptSettings
+    from leco_tpu_torch.testing import make_sd15_bundle
+    from leco_tpu_torch.train import checkpoint as ckpt_lib
+    from leco_tpu_torch.train import trainer
+
+    saved_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    seconds = {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+        print(f"recipes part {name}: {seconds[name]:.1f} s", flush=True)
+
+    try:
+        # ---- 1. the unreal recipe, uninterrupted
+        run1_dir = out_dir / "unreal"
+        run1 = run_cli(unreal_config(ckpt, run1_dir), out_dir / "unreal.yaml")
+        result = run1["result"]
+        losses = result["losses"]
+        check(len(losses) == UNREAL_ITERATIONS and all(np.isfinite(losses)), f"unreal losses {losses}")
+        records = [json.loads(ln) for ln in (run1_dir / "metrics.jsonl").read_text().splitlines()]
+        lr = 1e-4
+        for r in records:  # the cosine schedule, eta_min lr / 100
+            want = lr / 100 + (lr - lr / 100) * 0.5 * (1 + math.cos(math.pi * r["iteration"]
+                                                                 / UNREAL_ITERATIONS))
+            check(abs(r["lr"] - want) <= 1e-6 * want, f"lr {r['lr']} != cosine {want}")
+        tsto = [r["timesteps_to"] for r in records]
+        want = flash_launches(sum(t + 2 for t in tsto), UNREAL_ITERATIONS)
+        check(run1["launches"] == want, f"unreal launches {run1['launches']} != {want}")
+        for stem, tree in (("unreal_last", result["lora"]), ("unreal_last_ema", result["ema"])):
+            state, _ = read_safetensors(run1_dir / f"{stem}.safetensors")
+            for k, v in tree.items():
+                layer, part = k.rsplit(".", 1)
+                key = "lora_unet_" + layer.replace(".", "_") + f".{part}.weight"
+                check(torch.equal(state[key], v.to(torch.bfloat16)), f"{stem}: {key} differs")
+        for it in range(UNREAL_PER_STEPS, UNREAL_ITERATIONS - 1, UNREAL_PER_STEPS):
+            for stem in (f"unreal_{it}steps", f"unreal_{it}steps_ema"):
+                state, _ = read_safetensors(run1_dir / f"{stem}.safetensors")
+                check(len(state) == len(result["lora"]) * 3 // 2, f"{stem}: {len(state)} tensors")
+        check(ckpt_lib.latest_step(run1_dir / "state") == UNREAL_ITERATIONS - 2,
+              "the newest snapshot")
+        per_iter = iteration_seconds(run1)
+        resolutions = [r["resolution"][0] for r in records]
+        print(f"recipes unreal: seconds per iteration {json.dumps(per_iter)} (timesteps_to "
+              f"{tsto}, resolutions {resolutions}), peak {run1['peak_mem_gb']:.2f} GiB",
+              flush=True)
+        out["unreal"] = {"losses": losses, "timesteps_to": tsto, "resolutions": resolutions,
+                         "launches": run1["launches"], "seconds": run1["seconds"],
+                         "load_seconds": run1["load_end"][0] - run1["t0"],
+                         "seconds_per_iteration": per_iter, "peak_mem_gb": run1["peak_mem_gb"],
+                         "lora_tensors": len(result["lora"])}
+        lap("unreal")
+
+        # ---- 2. interrupted after iteration 3, then resumed from step_2
+        run2_dir = out_dir / "unreal_resumed"
+
+        def stop(i, loss):
+            if i == 3:
+                raise StopRun
+
+        try:
+            run_cli(unreal_config(ckpt, run2_dir), out_dir / "cut.yaml", on_step=stop)
+            check(False, "the interrupted run was not interrupted")
+        except StopRun:
+            pass
+        check(ckpt_lib.latest_step(run2_dir / "state") == 2, "the newest snapshot is not step_2")
+        config = unreal_config(ckpt, run2_dir)
+        config["train"]["resume"] = True
+        run2 = run_cli(config, out_dir / "resume.yaml")
+        resumed = run2["result"]["losses"]
+        check(len(resumed) == UNREAL_ITERATIONS - 3, f"resumed losses {resumed}")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[3:]))
+        check(loss_err <= RTOL_RESUME, f"resumed losses {resumed} vs {losses[3:]}")
+        last1, _ = read_safetensors(run1_dir / "unreal_last.safetensors")
+        last2, _ = read_safetensors(run2_dir / "unreal_last.safetensors")
+        period, _ = read_safetensors(run1_dir / f"unreal_{UNREAL_PER_STEPS}steps.safetensors")
+        size = max(v.float().abs().max().item() for v in last1.values())
+        w_err = max((last2[k].float() - v.float()).abs().max().item() for k, v in last1.items())
+        control = max((period[k].float() - v.float()).abs().max().item() for k, v in last1.items())
+        limit = RTOL_RESUME * size
+        check(w_err <= limit, f"resumed weights differ by {w_err} > {limit}")
+        check(control > limit, f"the weight limit {limit} passes run 1's "
+                               f"{UNREAL_PER_STEPS}-step weights ({control})")
+        bitwise = all(torch.equal(last2[k], v) for k, v in last1.items())
+        print(f"recipes resume: losses {resumed} vs {losses[3:]}, weights error {w_err} "
+              f"(limit {limit}, control {control}), bitwise {bitwise}", flush=True)
+        out["resume"] = {"losses": resumed, "loss_rel_err": loss_err, "weight_err": w_err,
+                         "weight_limit": limit, "weight_control": control, "bitwise": bitwise,
+                         "launches": run2["launches"]}
+        lap("resume")
+
+        # ---- 4. the eight optimizers on run 1's LoRA tree, card against CPU
+        out["optimizers"] = optimizer_checks(result["lora"], device)
+        del result, run1, run2
+        torch.cuda.empty_cache()
+        lap("optimizers")
+
+        # ---- 5. checkpoint_unet: SD2.1, 768 px, batch 1
+        spec = LoRASpec(rank=16, alpha=1.0, network_type="lierla")
+        models = loader.load_models(str(ckpt), v2=True, v_pred=True, weight_dtype=torch.bfloat16,
+                                    lora_spec=spec, attn_backend="flash", device=device)
+        bundle = trainer.ModelBundle(
+            unet=models.unet, scheduler=models.scheduler, spec=spec, device=device,
+            encode_fn=trainer.make_encode_fn(models.tokenizer, models.text_encoder, device))
+        pack = trainer.build_pack(trainer.encode_prompt_pairs(
+            [PromptSettings.from_dict({"target": "realistic", "resolution": CKPT_RESOLUTION})],
+            bundle.encode_fn)[0])
+        del models
+        bundle.free_text_encoder()
+        runs = {}
+        for name, on, seed in (("off", False, 0), ("on", True, 0), ("control", False, 1)):
+            bundle.unet.checkpoint_unet = on
+            runs[name] = one_step(bundle, pack, CKPT_RESOLUTION, seed)
+        off, on = runs["off"], runs["on"]
+        check(on["loss"] == off["loss"], f"checkpoint_unet loss {on['loss']} != {off['loss']}")
+        gate = grads_gate(on["grads"], off["grads"], runs["control"]["grads"], RTOL_CKPT_GRADS,
+                          "checkpoint_unet")
+        want_off = flash_launches(STEP_TIMESTEPS_TO + 2, 1)
+        want_on = {**want_off, "attn_fwd": want_off["attn_fwd"] + FLASH_ATTENTIONS_PER_FORWARD}
+        check(off["launches"] == want_off, f"launches off {off['launches']} != {want_off}")
+        check(on["launches"] == want_on, f"launches on {on['launches']} != {want_on}")
+        print(f"recipes checkpoint_unet: peak {off['peak_mem_gb']:.2f} GiB off, "
+              f"{on['peak_mem_gb']:.2f} GiB on; step {off['seconds']:.3f} s off, "
+              f"{on['seconds']:.3f} s on", flush=True)
+        out["checkpoint_unet"] = {
+            "loss": on["loss"], **gate, "launches_off": off["launches"],
+            "launches_on": on["launches"], "peak_mem_gb_off": off["peak_mem_gb"],
+            "peak_mem_gb_on": on["peak_mem_gb"], "step_s_off": off["seconds"],
+            "step_s_on": on["seconds"]}
+        del bundle, pack, runs, off, on
+        torch.cuda.empty_cache()
+        lap("checkpoint_unet")
+
+        # ---- 3. the schedulers, and 6. the knobs, on the SD1.5 bundle
+        bundle = make_sd15_bundle(dtype=torch.bfloat16, seed=0, device=device)
+        out["schedulers"] = {kind: scheduler_run(bundle, kind, out_dir / kind)
+                             for kind in ("ddpm", "lms", "euler_a")}
+        lap("schedulers")
+        bundle.scheduler = create_noise_scheduler("ddim")
+        out["knobs"] = knob_checks(bundle)
+        del bundle
+        torch.cuda.empty_cache()
+        lap("knobs")
+    finally:
+        torch.backends.cudnn.deterministic = saved_deterministic
+    return {**out, "part_seconds": seconds}
+
+
+def one_step(bundle, pack, res: int, seed: int) -> dict:
+    """One train step at STEP_TIMESTEPS_TO on latents from `seed`, its
+    optimizer at lr 0 (the weights stay) -> loss, LoRA grads, launches, peak
+    memory, seconds."""
+    import torch
+
+    from leco_tpu_torch.train import trainer
+
+    step = trainer.make_train_step(
+        bundle, torch.optim.SGD(list(bundle.lora_params.values()), lr=0.0), 50)
+    gen = torch.Generator(bundle.device)
+    gen.manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss = step(pack, 1.0, 1.0, STEP_TIMESTEPS_TO, height=res, width=res, generator=gen)
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "grads": lora_grads(bundle), "launches": launches(),
+            "seconds": time.perf_counter() - t0,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def scheduler_run(bundle, kind: str, save_dir: Path) -> dict:
+    """2 iterations of train() with `kind` on the SD1.5 bundle."""
+    import numpy as np
+
+    from leco_tpu_torch.config import RootConfig
+    from leco_tpu_torch.ops.schedulers import create_noise_scheduler
+    from leco_tpu_torch.prompts import PromptSettings
+    from leco_tpu_torch.train.trainer import train
+
+    iterations = 2
+    bundle.scheduler = create_noise_scheduler(kind)
+    config = RootConfig.from_dict({
+        "prompts_file": "(in-code)", "pretrained_model": {"name_or_path": "(random sd15)"},
+        "train": {"precision": "bfloat16", "noise_scheduler": kind, "iterations": iterations,
+                  "lr": 1e-4, "optimizer": "adamw", "max_denoising_steps": 50, "seed": 0},
+        "save": {"name": kind, "path": str(save_dir), "per_steps": 0, "precision": "bfloat16"},
+    })
+    encode_fn = bundle.encode_fn
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = train(config, [PromptSettings.from_dict(
+            {"target": "van gogh", "resolution": SD15_RESOLUTION})], bundle)
+    finally:
+        bundle.encode_fn = encode_fn
+    import torch
+
+    torch.cuda.synchronize()
+    counts = launches()
+    records = [json.loads(ln) for ln in (save_dir / "metrics.jsonl").read_text().splitlines()]
+    tsto = [r["timesteps_to"] for r in records]
+    check(len(result["losses"]) == iterations and all(np.isfinite(result["losses"])),
+          f"{kind}: losses {result['losses']}")
+    want = flash_launches(sum(t + 2 for t in tsto), iterations)
+    check(counts == want, f"{kind}: launches {counts} != {want}")
+    return {"losses": result["losses"], "timesteps_to": tsto, "launches": counts,
+            "seconds": time.perf_counter() - t0}
+
+
+def knob_checks(bundle) -> dict:
+    """LECO_FLASH_BWD=xla: no backward kernel, the grads of the default
+    step; LECO_FLASH_CROSS=1: cross-attention through the forward kernel."""
+    from leco_tpu_torch.prompts import PromptSettings
+    from leco_tpu_torch.train import trainer
+
+    pack = trainer.build_pack(trainer.encode_prompt_pairs(
+        [PromptSettings.from_dict({"target": "van gogh", "resolution": SD15_RESOLUTION})],
+        bundle.encode_fn)[0])
+    default = one_step(bundle, pack, SD15_RESOLUTION, 0)
+    control = one_step(bundle, pack, SD15_RESOLUTION, 1)
+    with environ({"LECO_FLASH_BWD": "xla"}):
+        plain_bwd = one_step(bundle, pack, SD15_RESOLUTION, 0)
+    want = flash_launches(STEP_TIMESTEPS_TO + 2, 0)
+    check(plain_bwd["launches"] == want, f"LECO_FLASH_BWD=xla launches {plain_bwd['launches']}")
+    check(plain_bwd["loss"] == default["loss"], "LECO_FLASH_BWD=xla changed the loss")
+    gate = grads_gate(plain_bwd["grads"], default["grads"], control["grads"], RTOL_GRAD,
+                      "LECO_FLASH_BWD=xla")
+    with environ({"LECO_FLASH_CROSS": "1"}):
+        cross = one_step(bundle, pack, SD15_RESOLUTION, 0)
+    # every transformer at levels 0-2 adds its cross-attention (Nk 77)
+    want = flash_launches(STEP_TIMESTEPS_TO + 2, 1, per_forward=2 * FLASH_ATTENTIONS_PER_FORWARD)
+    check(cross["launches"] == want, f"LECO_FLASH_CROSS=1 launches {cross['launches']} != {want}")
+    check(math.isfinite(cross["loss"]), f"LECO_FLASH_CROSS=1 loss {cross['loss']}")
+    print(f"recipes knobs: LECO_FLASH_BWD=xla grads error {gate['grad_err']} (limit "
+          f"{gate['grad_limit']}, control {gate['grad_control']}); LECO_FLASH_CROSS=1 loss "
+          f"{cross['loss']} vs {default['loss']}", flush=True)
+    return {"flash_bwd_xla": {**gate, "launches": plain_bwd["launches"],
+                              "peak_mem_gb": plain_bwd["peak_mem_gb"],
+                              "peak_mem_gb_default": default["peak_mem_gb"]},
+            "flash_cross": {"loss": cross["loss"], "default_loss": default["loss"],
+                            "launches": cross["launches"]}}
+
+
+def optimizer_checks(tree: dict, device) -> dict:
+    """Each optimizer OPTIMIZER_STEPS steps on `tree` (CPU tensors) with
+    seeded gradients, on the card and on the CPU: the card's weights within
+    RTOL_OPTIMIZER x max|w| of the CPU's (a control: the weights moved by
+    more than that); the device time of one step() on the card and its time
+    by CUDA events, and the 8-bit states' bytes."""
+    import torch
+
+    from leco_tpu_torch.kernels import timing
+    from leco_tpu_torch.train.optim import get_lr_schedule, get_optimizer
+
+    rows = {}
+    for name, lr, args in OPTIMIZERS:
+        weights = {}
+        opts = {}
+        for dev in ("cpu", device):
+            params = [torch.nn.Parameter(v.detach().float().clone().to(dev))
+                      for v in tree.values()]
+            opt = get_optimizer(name, params, lr, args)
+            lr_at = get_lr_schedule("cosine", lr, OPTIMIZER_STEPS)
+            gen = torch.Generator()
+            gen.manual_seed(0)
+            for j in range(OPTIMIZER_STEPS):
+                for p in params:
+                    p.grad = torch.randn(p.shape, generator=gen).to(dev)
+                opt.param_groups[0]["lr"] = lr_at(j)
+                opt.step()
+            weights[str(dev)] = [p.detach().cpu() for p in params]
+            opts[str(dev)] = opt
+        cpu, card = weights["cpu"], weights[str(device)]
+        start = [v.float() for v in tree.values()]
+        size = max(w.abs().max().item() for w in cpu)
+        err = max((a - b).abs().max().item() for a, b in zip(card, cpu))
+        moved = max((a - b).abs().max().item() for a, b in zip(cpu, start))
+        limit = RTOL_OPTIMIZER * size
+        check(err <= limit, f"{name}: card weights differ from the CPU's by {err} > {limit}")
+        check(moved > limit, f"{name}: the weights moved by {moved}, not past the limit")
+        card_opt = opts[str(device)]
+        row = {"err": err, "limit": limit, "moved": moved,
+               # the step's kernels, and the step by CUDA events (host included)
+               "device_ms": timing.device_ms(card_opt.step, calls=3, repeats=3, warmup=1),
+               "ms": time_ms(card_opt.step),
+               "bitwise": all(torch.equal(a, b) for a, b in zip(card, cpu))}
+        if hasattr(card_opt, "state_bytes"):
+            row["state_bytes"] = card_opt.state_bytes()
+        rows[name] = row
+        print(f"recipes optimizer {name}: {json.dumps(row)}", flush=True)
+    return {"leaves": len(tree), "elements": sum(v.numel() for v in tree.values()),
+            "steps": OPTIMIZER_STEPS, **rows}
 
 
 def main() -> None:
@@ -1155,7 +1597,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         cli = phase_cli(device, Path(tmp))
-    phase("cli", cli)
+        phase("cli", cli)
+        phase("recipes", phase_recipes(device, Path(tmp) / SD21_CHECKPOINT, Path(tmp)))
 
     # each kernel's launches come from the run of the path it is on: the
     # flash kernels from the default path, the fused ones from the knobs-on

@@ -4,8 +4,8 @@ that keeps a byte-bound call from finding its input in the cache.
 `device_ms(fns)` runs the calls `fns` in turn (one call each: `calls` calls
 per sample) under `torch.profiler`, sums the device time of every kernel,
 memset and copy those calls put on the card (`self_device_time_total` of
-the profiler's CUDA events), divides by the calls, and returns the median
-over `repeats` samples. Unlike CUDA events around the calls, it does not
+the profiler's CUDA events, user annotations left out), divides by the
+calls, and returns the median over `repeats` samples. Unlike CUDA events around the calls, it does not
 count the host's time between launches.
 
 For a byte-bound function, `rotation_count(nbytes)` gives how many copies
@@ -34,13 +34,21 @@ def rotation_count(nbytes: float, l2_bytes: float = L2_BYTES, factor: float = 2.
     return max(1, math.floor(factor * l2_bytes / nbytes) + 1)
 
 
-def per_call_ms(events, calls: int) -> float:
-    """The summed self device time (microseconds) of the profiler's CUDA
-    events over `calls` calls -> milliseconds per call."""
+def device_events(events) -> list:
+    """The profiler's events that the device executed: kernels, memsets and
+    copies. A `record_function` range (`torch.optim` wraps every `step()` in
+    one) also shows on the device timeline, as a user annotation whose time
+    spans the range, idle gaps included: it is left out."""
     from torch.autograd import DeviceType
 
-    total_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
-    return total_us / calls / 1e3
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def per_call_ms(events, calls: int) -> float:
+    """The summed self device time (microseconds) of `device_events` over
+    `calls` calls -> milliseconds per call."""
+    return sum(e.self_device_time_total for e in device_events(events)) / calls / 1e3
 
 
 def median(samples) -> float:

@@ -185,12 +185,15 @@ def _assign(module: torch.nn.Module, sd: dict, dtypes: dict, device, what: str) 
 
 
 def build_unet(config: UNetConfig, sd: dict[str, torch.Tensor], spec: Optional[LoRASpec],
-               weight_dtype: torch.dtype, attn_backend: str, device) -> UNet2DConditionModel:
+               weight_dtype: torch.dtype, attn_backend: str, device,
+               checkpoint_unet: bool = False) -> UNet2DConditionModel:
     """A diffusers-keyed UNet state_dict -> the port's UNet on `device`, with
     the LoRA branches of `spec` (fp32 masters) added, drawn from a generator
-    seeded 0 (the JAX loader's `_build_unet` seed)."""
+    seeded 0 (the JAX loader's `_build_unet` seed). `checkpoint_unet` is the
+    JAX loader's `remat`."""
     with torch.device("meta"):
-        unet = UNet2DConditionModel(config, dtype=weight_dtype, attn_backend=attn_backend)
+        unet = UNet2DConditionModel(config, dtype=weight_dtype, attn_backend=attn_backend,
+                                    checkpoint_unet=checkpoint_unet)
     layer_params = {f"{name}.{leaf}" for name, mod in unet.named_modules()
                     if isinstance(mod, _LoRALayer) for leaf in ("weight", "bias")}
     unexpected = sorted(set(sd) - set(unet.state_dict()))
@@ -239,14 +242,18 @@ def load_models(
     lora_spec: Optional[LoRASpec] = None,
     attn_backend: str = "xla",
     device: str | torch.device = "cpu",
+    checkpoint_unet: bool = False,
 ) -> LoadedModels:
     """SD1.x/2.x loader (model_util.load_models): a diffusers directory or
-    a single `.ckpt` / `.safetensors` LDM file."""
+    a single `.ckpt` / `.safetensors` LDM file. `checkpoint_unet` (the
+    config's `train.checkpoint_unet`, the JAX loader's `remat`) builds a UNet
+    that recomputes its blocks in the backward."""
     path = pretrained_model_name_or_path
     device = torch.device(device)
     if path.endswith(".ckpt") or path.endswith(".safetensors"):
         return _load_single_file(path, scheduler_name, v2, v_pred, weight_dtype,
-                                 clip_skip, lora_spec, attn_backend, device)
+                                 clip_skip, lora_spec, attn_backend, device,
+                                 checkpoint_unet)
     if not os.path.isdir(path):
         raise FileNotFoundError(
             f"{path!r} is not a local diffusers directory or checkpoint file. "
@@ -255,7 +262,7 @@ def load_models(
     with open(os.path.join(path, "unet", "config.json")) as f:
         unet_config = unet_config_from_json(json.load(f))
     unet = build_unet(unet_config, load_component_tensors(os.path.join(path, "unet")),
-                      lora_spec, weight_dtype, attn_backend, device)
+                      lora_spec, weight_dtype, attn_backend, device, checkpoint_unet)
 
     with open(os.path.join(path, "text_encoder", "config.json")) as f:
         te_config = clip_config_from_json(json.load(f), clip_skip)
@@ -269,7 +276,7 @@ def load_models(
 
 
 def _load_single_file(path, scheduler_name, v2, v_pred, weight_dtype, clip_skip,
-                      lora_spec, attn_backend, device) -> LoadedModels:
+                      lora_spec, attn_backend, device, checkpoint_unet) -> LoadedModels:
     sd = load_tensor_file(path)
     if any(k.startswith("conditioner.embedders.1.") for k in sd):
         raise ValueError(
@@ -293,7 +300,8 @@ def _load_single_file(path, scheduler_name, v2, v_pred, weight_dtype, clip_skip,
             f"{'linear' if use_linear else 'conv'} but the v2={v2} config "
             f"expects {'linear' if unet_config.use_linear_projection else 'conv'} "
             "— the v2 flag likely does not match the checkpoint.")
-    unet = build_unet(unet_config, unet_sd, lora_spec, weight_dtype, attn_backend, device)
+    unet = build_unet(unet_config, unet_sd, lora_spec, weight_dtype, attn_backend, device,
+                      checkpoint_unet)
     del unet_sd
 
     if v2:

@@ -19,6 +19,10 @@ GEGLU's gelu is the JAX package's polynomial-erf `gelu_exact`; and a
 compute dtype separate from the norms:
 GroupNorm and LayerNorm keep fp32 parameters and fp32 statistics and hand
 back the compute dtype, as the JAX package's FusedGroupNorm / LayerNorm do.
+`checkpoint_unet=True` (the JAX package's `remat`, `nn.remat` over the down,
+mid and up blocks) runs each of those blocks under
+`torch.utils.checkpoint` while grad is enabled: its activations are not
+kept, and the backward runs its forward again, kernels and all.
 SDXL's added text-time embedding is not ported yet.
 """
 
@@ -31,6 +35,7 @@ from typing import Optional, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from leco_tpu_torch.lora import LoRAConv2d, LoRALinear
 from leco_tpu_torch.ops import gn_conv
@@ -413,6 +418,7 @@ class CrossAttnUpBlock2D(nn.Module):
         )
 
     def forward(self, x, res_states, temb, ctx):
+        res_states = list(res_states)  # a checkpointed call runs twice on one list
         for resnet, attn in zip(self.resnets, self.attentions):
             x = torch.cat([x, res_states.pop()], dim=1)
             x = attn(resnet(x, temb), ctx)
@@ -432,6 +438,7 @@ class UpBlock2D(nn.Module):
         )
 
     def forward(self, x, res_states, temb, ctx=None):
+        res_states = list(res_states)  # a checkpointed call runs twice on one list
         for resnet in self.resnets:
             x = torch.cat([x, res_states.pop()], dim=1)
             x = resnet(x, temb)
@@ -452,12 +459,13 @@ class UNet2DConditionModel(nn.Module):
     `leco_tpu_torch.testing.init_unet_` or `load_state_dict`."""
 
     def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.float32,
-                 attn_backend: str = "xla"):
+                 attn_backend: str = "xla", checkpoint_unet: bool = False):
         super().__init__()
         if cfg.addition_embed_type is not None:
             raise NotImplementedError("SDXL added embeddings are not ported yet")
         self.cfg = cfg
         self.dtype = dtype
+        self.checkpoint_unet = checkpoint_unet
         ch = cfg.block_out_channels
         heads = cfg.heads_per_block
         tlayers = cfg.tlayers_per_block
@@ -541,14 +549,21 @@ class UNet2DConditionModel(nn.Module):
             timestep_embedding(t, cfg.block_out_channels[0]).to(self.dtype)
         )
 
+        if self.checkpoint_unet and torch.is_grad_enabled():
+            def run(block, *args):
+                return checkpoint(block, *args, use_reentrant=False)
+        else:
+            def run(block, *args):
+                return block(*args)
+
         sample = self.conv_in(sample)
         stack = [sample]
         for block in self.down_blocks:
-            sample, res = block(sample, emb, ctx)
+            sample, res = run(block, sample, emb, ctx)
             stack.extend(res)
-        sample = self.mid_block(sample, emb, ctx)
+        sample = run(self.mid_block, sample, emb, ctx)
         for block in self.up_blocks:
             n_pop = cfg.layers_per_block + 1
             res, stack = stack[-n_pop:], stack[:-n_pop]
-            sample = block(sample, res, emb, ctx)
+            sample = run(block, sample, res, emb, ctx)
         return self.conv_out(self.conv_norm_out(sample))

@@ -9,7 +9,10 @@ Counterpart of `leco_tpu/ops/attention.py`:
     `leco_tpu_torch.ops.flash_attention` for the shapes `supports()` admits;
     every other shape takes the plain attention. Under `LECO_FLASH_PACKED=1`
     (read at call time) the shapes `supports_packed()` admits take the
-    packed-layout kernel instead, with no head transposes.
+    packed-layout kernel instead, with no head transposes; under
+    `LECO_FLASH_CROSS=1` cross-attention with Nq >= 256 takes the 3-d
+    kernels too, and `LECO_FLASH_BWD` other than "pallas" gives the 3-d
+    route the plain fp32 backward (`flash_attention.kernel_backward`).
 
 The fp32 softmax upcast (`upcast`) applies on the plain path only; the
 kernels keep their own fp32 softmax, as in the JAX package.
@@ -50,8 +53,8 @@ def multi_head_attention(
     backend="flash", self-attention with Nq, Nk >= 256 goes to the kernels
     (fp32 on CUDA excepted, see `flash_attention.supports`), to the packed
     one under `LECO_FLASH_PACKED=1` where `supports_packed` admits the
-    shape; cross-attention over the 77 text tokens and the 64-token mid
-    block take the plain path.
+    shape; cross-attention over the 77 text tokens (unless
+    `LECO_FLASH_CROSS=1`) and the 64-token mid block take the plain path.
     """
     head_dim = q.shape[-1] // num_heads
     scale = head_dim**-0.5

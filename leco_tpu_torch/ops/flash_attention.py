@@ -16,7 +16,9 @@ Layouts, as in the JAX package: q3 (BH, Nq, D); k3, v3 (BH, Nk, D); the
 log-sum-exp residual lse and delta = rowsum(dO * O) are fp32 (BH, Nq). The
 packed route (`LECO_FLASH_PACKED=1`) keeps the model's layout: q2 (B, Nq, C),
 k2, v2 (B, Nk, C) with C = heads * D, and no lse; its backward is plain fp32
-PyTorch, as the JAX package's is XLA einsum.
+PyTorch, as the JAX package's is XLA einsum. `LECO_FLASH_BWD` other than
+"pallas" gives the 3-d route that plain fp32 backward too, and
+`LECO_FLASH_CROSS=1` sends cross-attention to the forward kernel.
 """
 
 from __future__ import annotations
@@ -35,14 +37,25 @@ KERNEL_DTYPES = (torch.bfloat16,)
 
 def supports(nq: int, nk: int, dtype: torch.dtype, device: torch.device) -> bool:
     """The dispatch rule of `ops/attention.py`. Shapes, as in the JAX
-    package: self-attention at the top UNet levels only (Nq, Nk >= 256);
-    cross-attention over 77 tokens and the 64-token mid block take the plain
-    attention. Dtype: an fp32 tensor on CUDA takes the plain attention too,
-    since the kernels are bf16; on the CPU every dtype goes through the
-    kernels' plain versions."""
+    package (`supports`, :659-670): self-attention at the top UNet levels
+    only (Nq, Nk >= 256); cross-attention over 77 tokens and the 64-token
+    mid block take the plain attention, except that `LECO_FLASH_CROSS=1`
+    (read at call time) admits any Nk once Nq >= 256. Dtype: an fp32 tensor
+    on CUDA takes the plain attention too, since the kernels are bf16; on
+    the CPU every dtype goes through the kernels' plain versions."""
     if torch.device(device).type == "cuda" and dtype == torch.float32:
         return False
+    if os.environ.get("LECO_FLASH_CROSS") == "1":
+        return nq >= 256
     return nq >= 256 and nk >= 256
+
+
+def kernel_backward() -> bool:
+    """`LECO_FLASH_BWD` (read at call time, default "pallas", the JAX
+    package's knob at :464): any other value sends the 3-d route's backward
+    to `attn_bwd_plain`, the fp32 backward from the whole softmax, as the JAX
+    package falls back to XLA."""
+    return os.environ.get("LECO_FLASH_BWD", "pallas") == "pallas"
 
 
 # the JAX package's packed-kernel sizing (flash_attention.py:559-574): the
@@ -180,6 +193,13 @@ def attn_bwd_packed_plain(q2, k2, v2, g, heads: int, scale: float):
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
     return (dq.reshape(b, nq, c).to(q2.dtype), dk.reshape(k2.shape).to(k2.dtype),
             dv.reshape(v2.shape).to(v2.dtype))
+
+
+def attn_bwd_plain(q3, k3, v3, g, scale: float):
+    """(dq, dk, dv) of 3-d attention in fp32 from the whole softmax: the
+    JAX package's XLA backward (:470-483), `attn_bwd_packed_plain` with one
+    head."""
+    return attn_bwd_packed_plain(q3, k3, v3, g, 1, scale)
 
 
 def attn_bwd_dq_plain(q3, k3, v3, g, lse, delta, scale: float):
@@ -335,6 +355,8 @@ class FlashAttention3D(torch.autograd.Function):
     def backward(ctx, g):
         q3, k3, v3, o, lse = ctx.saved_tensors
         g = g.contiguous()
+        if not kernel_backward():
+            return (*attn_bwd_plain(q3, k3, v3, g, ctx.scale), None)
         # Δ = rowsum(dO ∘ O), an fp32 reduction outside the kernels (:465-468)
         delta = (g.float() * o.float()).sum(dim=-1)
         dq = attn_bwd_dq(q3, k3, v3, g, lse, delta, ctx.scale)

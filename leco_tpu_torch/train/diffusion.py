@@ -4,13 +4,15 @@ partial-denoise sampler and resolution buckets.
 Counterpart of `leco_tpu/train/diffusion.py` (reference train_util.py).
 Latents are NCHW. Noise comes from an explicit `torch.Generator`; it cannot
 reproduce the JAX package's `jax.random` draws, so the train step also takes
-its latents as an argument (the parity tests feed both sides one draw). The
-JAX package's traced-bound `fori_loop` becomes a Python loop under no_grad.
+its latents as an argument, and `diffusion` its per-step noise as a
+callable (the parity tests feed both sides one draw). The JAX package's
+traced-bound `fori_loop` becomes a Python loop under no_grad, with LMS's
+derivative history in the loop's state.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -62,15 +64,29 @@ def predict_noise(unet: Callable, state: sched.SchedulerState, step_index: int,
 @torch.no_grad()
 def diffusion(unet: Callable, state: sched.SchedulerState, latents: torch.Tensor,
               text_embeddings: torch.Tensor, total_timesteps: int,
-              guidance_scale: float = 3.0) -> torch.Tensor:
+              guidance_scale: float = 3.0,
+              noise: Optional[Callable[[int], torch.Tensor]] = None) -> torch.Tensor:
     """Partial denoise from pure noise for `total_timesteps` steps of the
-    `state` schedule (train_util.py:171-193)."""
-    if state.kind != "ddim":
-        raise NotImplementedError(f"scheduler {state.kind} is not ported yet")
+    `state` schedule (train_util.py:171-193). `noise(i)` gives step i's
+    standard normal of the latents' shape; ddpm and euler_a need it."""
+    kind = state.kind
+    if sched.needs_noise(kind) and noise is None:
+        raise ValueError(f"scheduler {kind} needs a noise source")
+    history = (torch.zeros((sched.LMS_ORDER,) + tuple(latents.shape), dtype=torch.float32,
+                           device=latents.device) if kind == "lms" else None)
     for i in range(total_timesteps):
         noise_pred = predict_noise(unet, state, i, latents, text_embeddings,
                                    guidance_scale=guidance_scale)
-        latents = sched.step_ddim(state, noise_pred, i, latents)
+        if kind == "ddim":
+            latents = sched.step_ddim(state, noise_pred, i, latents)
+        elif kind == "ddpm":
+            latents = sched.step_ddpm(state, noise_pred, i, latents, noise(i))
+        elif kind == "euler_a":
+            latents = sched.step_euler_a(state, noise_pred, i, latents, noise(i))
+        elif kind == "lms":
+            latents, history = sched.step_lms(state, noise_pred, i, latents, history)
+        else:
+            raise ValueError(kind)
     return latents
 
 

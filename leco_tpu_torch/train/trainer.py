@@ -8,27 +8,33 @@ One iteration, as in the JAX package:
     [LoRA off   ] 1 UNet forward @ 3B (the three references at guidance 1,
                   where CFG is the conditioned branch alone)       (no grad)
     [LoRA on    ] 1 UNet forward @ B, differentiated
-    fp32 ESD loss -> backward -> AdamW step
+    fp32 ESD loss -> backward -> optimizer step at the schedule's lr
 
 PyTorch runs eagerly, so the step is a plain function and the LoRA weights
 and optimizer state live in the model and the torch optimizer. The host loop
 draws (pair, timesteps_to, resolution) from the same seeded
 `np.random.default_rng` stream in the same order as the JAX package, so the
-same config gives the same schedule. Not ported yet (raise
-NotImplementedError, queued in ROADMAP.md): step_chunk > 1, resume,
-save_state, ema_decay > 0, tensor/spatial parallelism, checkpoint_unet.
-`logging.use_wandb` does what the JAX package does: `wandb` is imported
-only then, and if it is not installed the loop says so and trains on.
-`data_parallel: true` on one device is a no-op, as it is on one chip in the
-JAX package. Saves are written synchronously whatever
-`save.async_write` says. Progress is one printed line per iteration
-(`Loss*1k`), where the reference draws a tqdm bar.
+same config gives the same schedule; latents and the stochastic schedulers'
+noise come from one torch generator seeded alongside. Every SD1.x/2.x
+option of the JAX trainer runs: the four noise schedulers, the eight
+optimizers and five LR schedules, `ema_decay` (an EMA of the LoRA, saved
+beside it), `save_state` and `resume` (`train/checkpoint.py`, at the
+periodic saves), `checkpoint_unet`, `save.async_write` (periodic saves
+copied to the host in the loop and written on a thread; a failed writer
+leaves a `_rescue` save and raises) and `logging.use_wandb` (`wandb` is
+imported only then; without it the loop says so and trains on).
+`data_parallel: true` on one device is a no-op, as it is on one chip in
+the JAX package. Refused: `step_chunk > 1` (the JAX package's device-side
+scan, not ported) and tensor or spatial parallelism (ROADMAP.md). Progress
+is one printed line per iteration (`Loss*1k`), where the reference draws a
+tqdm bar.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -80,7 +86,10 @@ def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
                     max_denoising_steps: int, inner_guidance_scale: float = 3.0):
     """-> step(pack, guidance_scale, erase_sign, timesteps_to, *, height,
     width, generator=None, latents=None) -> loss (0-d fp32 tensor on the
-    device). `latents` (B, 4, H/8, W/8) replaces the draw from `generator`."""
+    device). `latents` (B, 4, H/8, W/8) replaces the initial latents (the
+    draw from `generator` times `init_noise_sigma`); ddpm and euler_a draw
+    their per-step noise from `generator` after it.
+    The optimizer steps at its `param_groups` lr, which the caller sets."""
     unet = bundle.unet
     scheduler = bundle.scheduler
     state_n = scheduler.set_timesteps(max_denoising_steps)
@@ -97,6 +106,10 @@ def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
                 generator, state_n, batch, height, width, bundle.device
             )
 
+        def noise(i: int) -> torch.Tensor:  # ddpm / euler_a: one draw per step
+            return torch.randn(latents.shape, generator=generator, device=latents.device,
+                               dtype=torch.float32)
+
         with torch.no_grad():
             # ---- inner partial denoise, LoRA folded, guidance 3
             # (train_lora.py:179-193)
@@ -104,6 +117,7 @@ def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
                 denoised = diff.diffusion(
                     unet, state_n, latents, pack["inner_embeds"], timesteps_to,
                     guidance_scale=inner_guidance_scale,
+                    noise=noise if generator is not None else None,
                 )
 
             # ---- training timestep on the 1000-step schedule
@@ -184,28 +198,31 @@ def encode_prompt_pairs(prompts: list[PromptSettings],
     return pairs
 
 
+
+
 def _refuse_unported(config: RootConfig) -> None:
     t = config.train
     unported = {
         "train.step_chunk > 1": t.step_chunk > 1,
-        "train.resume": t.resume,
-        "train.save_state": t.save_state,
-        "train.ema_decay > 0": t.ema_decay > 0.0,
         "train.tensor_parallel > 1": t.tensor_parallel > 1,
         "train.spatial_parallel != 1": t.spatial_parallel != 1,
-        "train.checkpoint_unet": t.checkpoint_unet,
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+        raise NotImplementedError(f"not ported: {', '.join(asked)}")
+
+
+def _copy_tree(tree: dict) -> dict:
+    return {k: v.detach().clone() for k, v in tree.items()}
 
 
 def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle,
           on_step: Optional[Callable] = None) -> dict:
     """The training loop (reference train(), train_lora.py:34-321).
 
-    Returns {"lora": {name: CPU tensor}, "losses": [...], "saved": [paths]}.
-    `on_step(i, loss)` is an optional observer hook."""
+    Returns {"lora": {name: CPU tensor}, "losses": [...], "saved": [paths],
+    "ema": {name: CPU tensor} or None}. `on_step(i, loss)` is an optional
+    observer hook."""
     _refuse_unported(config)
     metadata = {
         "prompts": ",".join(json.dumps(p.to_dict()) for p in prompts),
@@ -239,12 +256,47 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
     print(f"create LoRA for U-Net: {count_lora_modules(lora)} modules.")
     for settings in prompts:
         print(settings)
+    if config.train.checkpoint_unet:
+        bundle.unet.checkpoint_unet = True
 
-    # ---- optimizer (train_lora.py:80-95)
+    # ---- optimizer (train_lora.py:80-95); the lr of iteration j is set
+    # before its step, where optax evaluates the schedule
     lr_at = get_lr_schedule(config.train.lr_scheduler, config.train.lr,
-                            config.train.iterations)
+                            config.train.iterations, lr_min=config.train.lr / 100)
     optimizer = get_optimizer(config.train.optimizer, list(lora.values()),
                               config.train.lr, config.train.optimizer_args)
+
+    # ---- optional EMA of the LoRA weights, started at the weights
+    ema_decay = float(config.train.ema_decay)
+    ema = None
+    if ema_decay != 0.0:
+        if not 0.0 < ema_decay < 1.0:
+            raise ValueError(f"train.ema_decay must be in (0, 1), got {ema_decay}")
+        ema = _copy_tree(lora)
+
+    # ---- optional full-state resume from the newest snapshot
+    state_dir = save_path / "state"
+    start_iteration = 0
+    if config.train.resume:
+        from leco_tpu_torch.train import checkpoint as ckpt
+
+        restored = ckpt.restore_train_state(state_dir, map_location=bundle.device)
+        if restored is not None:
+            if set(restored["lora"]) != set(lora):
+                raise ValueError(f"{state_dir}: the snapshot's LoRA tensors are not this "
+                                 "model's")
+            with torch.no_grad():
+                for k, p in lora.items():
+                    p.copy_(restored["lora"][k])
+            optimizer.load_state_dict(restored["optimizer"])
+            start_iteration = restored["iteration"] + 1
+            generator.set_state(restored["generator"])
+            rng = restored["rng"]
+            if ema is not None:
+                # a snapshot from before EMA was on restarts it from the weights
+                ema = _copy_tree(restored.get("ema", restored["lora"]))
+            print(f"resumed from {state_dir} at iteration {start_iteration}")
+
     step_fn = make_train_step(bundle, optimizer, config.train.max_denoising_steps)
 
     losses: list[float] = []
@@ -255,11 +307,27 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
     # pending, then come to the host in one transfer (the host syncs with
     # the device once per interval, not once per iteration)
     pending: list = []
+    save_threads: list[threading.Thread] = []
+    save_errors: list[Exception] = []
 
-    def save(p: Path) -> None:
-        print("Saving...")
-        save_lora_weights(p, lora, bundle.spec, save_dtype, metadata)
+    def submit_save(p: Path, tree: dict) -> None:
+        """Write `tree` to `p` now, or under `save.async_write` copy it to
+        host tensors here and write it on a thread."""
         saved.append(p)
+        if not config.save.async_write:
+            save_lora_weights(p, tree, bundle.spec, save_dtype, metadata)
+            return
+        snapped = {k: v.detach().to("cpu", save_dtype, copy=True) for k, v in tree.items()}
+
+        def write() -> None:
+            try:
+                save_lora_weights(p, snapped, bundle.spec, save_dtype, metadata)
+            except Exception as e:  # raised in the loop's thread, at the final join
+                save_errors.append(e)
+
+        thread = threading.Thread(target=write, name=f"leco-save-{p.name}")
+        thread.start()
+        save_threads.append(thread)
 
     with open(save_path / "metrics.jsonl", "a") as metrics_file:
 
@@ -289,7 +357,11 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
 
         iterations = config.train.iterations
         per_steps = config.save.per_steps
-        for i in range(iterations):
+        for i in range(start_iteration, iterations):
+            # a failed background writer stops the run at once; the
+            # in-memory weights are rescued below
+            if save_errors:
+                break
             # sampling order of train_lora.py:141-176
             pair = pairs[int(rng.integers(0, len(pairs)))]
             timesteps_to = int(rng.integers(1, config.train.max_denoising_steps))
@@ -309,9 +381,16 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
             if pack is None:
                 pack = pack_cache[id(pair)] = build_pack(pair)
 
+            for group in optimizer.param_groups:
+                group["lr"] = lr_at(i)
             loss = step_fn(pack, pair.guidance_scale, pair.erase_sign,
                            timesteps_to, height=height, width=width,
                            generator=generator)
+            if ema is not None:
+                ema_values = list(ema.values())
+                torch._foreach_mul_(ema_values, ema_decay)
+                torch._foreach_add_(ema_values, torch._foreach_mul(
+                    [lora[k].detach() for k in ema], 1.0 - ema_decay))
             pending.append(((i, timesteps_to, height, width), loss))
             if len(pending) >= max(1, config.logging.interval):
                 drain()
@@ -321,10 +400,40 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
             if (per_steps > 0 and i % per_steps == 0 and i != 0
                     and i != iterations - 1):
                 drain()
-                save(save_path / f"{config.save.name}_{i}steps.safetensors")
+                print("Saving...")
+                submit_save(save_path / f"{config.save.name}_{i}steps.safetensors", lora)
+                if ema is not None:
+                    submit_save(save_path / f"{config.save.name}_{i}steps_ema.safetensors",
+                                ema)
+                if config.train.save_state:
+                    from leco_tpu_torch.train import checkpoint as ckpt
+
+                    ckpt.save_train_state(
+                        state_dir, lora=lora, optimizer=optimizer.state_dict(), iteration=i,
+                        generator_state=generator.get_state(), rng=rng, ema=ema)
 
         drain()
-        save(save_path / f"{config.save.name}_last.safetensors")
+        # every periodic writer lands (or its failure surfaces) before the
+        # final save
+        for thread in save_threads:
+            thread.join()
+        if save_errors:
+            # keep the in-memory weights under a name of their own, never
+            # over a `_last` that may be good, then raise the writer's error
+            rescue = save_path / f"{config.save.name}_rescue.safetensors"
+            try:
+                save_lora_weights(rescue, lora, bundle.spec, save_dtype, metadata)
+                saved.append(rescue)
+                print(f"background save failed; weights rescued to {rescue}")
+            except Exception as rescue_err:
+                print(f"background save failed AND rescue save failed: {rescue_err}")
+            raise save_errors[0]
+        print("Saving...")
+        for p, tree in ((f"{config.save.name}_last.safetensors", lora),
+                        (f"{config.save.name}_last_ema.safetensors", ema)):
+            if tree is not None:
+                save_lora_weights(save_path / p, tree, bundle.spec, save_dtype, metadata)
+                saved.append(save_path / p)
     if wandb_run is not None:
         wandb_run.finish()
     print("Done.")
@@ -332,4 +441,5 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
         "lora": {k: v.detach().cpu() for k, v in lora.items()},
         "losses": losses,
         "saved": saved,
+        "ema": None if ema is None else {k: v.cpu() for k, v in ema.items()},
     }

@@ -8,9 +8,11 @@ train_lora.py:333-343) plus `--device`, the port's counterpart of
 than running on the CPU; the CPU tests pass `--device cpu`. The steps are
 the JAX CLI's: config, prompts, precision, LoRA spec, the attention choice
 (`use_flash_attention`, else `use_xformers`, else the device's default),
-`load_models`, the parameter summaries, then `train`. The JAX CLI's
-multi-chip meshes have no counterpart yet: `data_parallel` on one device is
-a no-op, and tensor or spatial parallelism raises (ROADMAP.md).
+`load_models` (with `train.checkpoint_unet` as the JAX CLI passes it, its
+`remat`), the parameter summaries, then `train`. Before any weight loads it
+refuses what the port does not run: `step_chunk > 1` and the JAX CLI's
+multi-chip meshes (tensor or spatial parallelism, ROADMAP.md);
+`data_parallel` on one device is a no-op.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ def main(args, on_step=None) -> dict:
         lora_spec=spec,
         attn_backend="flash" if use_flash else "xla",
         device=device,
+        checkpoint_unet=config.train.checkpoint_unet,
     )
     bundle = ModelBundle(
         unet=models.unet,

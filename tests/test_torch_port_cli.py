@@ -130,10 +130,62 @@ def test_cli_module_refuses_cuda_without_a_gpu(checkpoint, tmp_path):
     assert not (tmp_path / "out").exists()
 
 
-def test_cli_refuses_unported_options_before_loading(tmp_path):
-    config = write_run(tmp_path, tmp_path / "not-there", "\n  checkpoint_unet: true")
-    with pytest.raises(NotImplementedError, match="train.checkpoint_unet"):
+@pytest.mark.parametrize("option,message", [
+    ("step_chunk: 2", "train.step_chunk > 1"),
+    ("tensor_parallel: 2", "train.tensor_parallel > 1"),
+    ("spatial_parallel: 2", "train.spatial_parallel != 1"),
+])
+def test_cli_refuses_unported_options_before_loading(tmp_path, option, message):
+    """What the port still refuses: the JAX package's device-side step
+    chunking and its multi-chip meshes; the checkpoint is never read."""
+    config = write_run(tmp_path, tmp_path / "not-there", f"\n  {option}")
+    with pytest.raises(NotImplementedError, match=message.replace(">", ".").replace("!", ".")):
         main(parse_args(["--config_file", str(config), "--device", "cpu"]))
+
+
+def test_cli_trains_a_tiny_unreal_recipe(checkpoint, tmp_path):
+    """`python -m leco_tpu_torch.train_lora --device cpu` on a tiny copy of
+    examples/unreal_config.yaml (Lion, cosine, rank 16, the 12-pair
+    multi-resolution prompts at 128/192/256 px) with this slice's options:
+    lms, save_state, ema_decay and checkpoint_unet."""
+    from leco_tpu_torch.train.checkpoint import latest_step
+    from leco_tpu_torch.train.optim import get_lr_schedule
+    from leco_tpu_torch.utils import yaml_subset
+
+    config = yaml_subset.load(REPO / "examples" / "unreal_config.yaml")
+    assert (config["train"]["optimizer"], config["train"]["lr_scheduler"]) == ("lion", "cosine")
+    prompts = (REPO / "examples" / "unreal_prompts.yaml").read_text()
+    for big, small in (("512", "128"), ("640", "192"), ("768", "256")):
+        prompts = prompts.replace(f"resolution: {big}", f"resolution: {small}")
+    (tmp_path / "prompts.yaml").write_text(prompts)
+    config["prompts_file"] = str(tmp_path / "prompts.yaml")
+    config["pretrained_model"].update(name_or_path=str(checkpoint), v2=False, v_pred=False)
+    config["train"].update(iterations=3, max_denoising_steps=3, seed=0, precision="float32",
+                           noise_scheduler="lms", save_state=True, ema_decay=0.999,
+                           checkpoint_unet=True)
+    config["save"].update(path=str(tmp_path / "out"), per_steps=1)
+    config["logging"].update(verbose=False)
+    lines = [f"prompts_file: {json.dumps(config.pop('prompts_file'))}"]
+    for section, values in config.items():
+        lines += [f"{section}:"] + [f"  {k}: {json.dumps(v)}" for k, v in values.items()]
+    (tmp_path / "config.yaml").write_text("\n".join(lines) + "\n")
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "leco_tpu_torch.train_lora", "--config_file",
+         str(tmp_path / "config.yaml"), "--device", "cpu"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.rstrip().endswith("Done.")
+    out = tmp_path / "out"
+    records = [json.loads(ln) for ln in (out / "metrics.jsonl").read_text().splitlines()]
+    lr_at = get_lr_schedule("cosine", 1e-4, 3)
+    assert [r["lr"] for r in records] == [lr_at(j) for j in range(3)]
+    assert all(np.isfinite(r["loss"]) for r in records)
+    assert {r["resolution"][0] for r in records} <= {128, 192, 256}
+    assert latest_step(out / "state") == 1
+    for name in ("unreal_1steps", "unreal_1steps_ema", "unreal_last", "unreal_last_ema"):
+        assert (out / f"{name}.safetensors").exists(), name
 
 
 def test_cli_trains_with_use_wandb_when_wandb_is_missing(checkpoint, tmp_path, monkeypatch,

@@ -108,7 +108,7 @@ def test_esd_loss_matches_jax(action, sign, dtype):
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
 
-BLOCKED = ("jax", "flax", "optax", "pydantic", "yaml", "safetensors", "tqdm", "regex",
+BLOCKED = ("jax", "flax", "optax", "orbax", "pydantic", "yaml", "safetensors", "tqdm", "regex",
            "leco_tpu")
 
 MAIN_PATH_WITHOUT_EXTRAS = textwrap.dedent(

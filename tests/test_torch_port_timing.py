@@ -34,13 +34,23 @@ def test_rotation_count_refuses_an_empty_input():
         timing.rotation_count(0)
 
 
-def _event(us, device=DeviceType.CUDA):
-    return SimpleNamespace(device_type=device, self_device_time_total=us)
+def _event(us, device=DeviceType.CUDA, annotation=False):
+    return SimpleNamespace(device_type=device, self_device_time_total=us,
+                           is_user_annotation=annotation)
 
 
 def test_per_call_ms_sums_the_device_events_only():
     events = [_event(30.0), _event(10.0), _event(5.0), _event(1000.0, DeviceType.CPU)]
     assert timing.per_call_ms(events, calls=10) == pytest.approx(0.0045)
+
+
+def test_per_call_ms_leaves_out_user_annotations():
+    """An optimizer's `step()` range on the device timeline spans its idle
+    gaps; only the kernels inside it count."""
+    events = [_event(9630.0, annotation=True), _event(500.0), _event(260.0),
+              _event(9700.0, DeviceType.CPU, annotation=True)]
+    assert timing.per_call_ms(events, calls=1) == pytest.approx(0.76)
+    assert timing.device_events(events) == events[1:3]
 
 
 def test_per_call_ms_of_no_device_events_is_zero():
