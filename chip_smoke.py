@@ -49,8 +49,12 @@ Phases, each printing its result on a line of its own:
                random full-width SD1.5 bundle (bf16, rank-4 lierla, DDIM,
                512 px, batch 1, the van-gogh erase prompt), with every
                kernel's launch count checked against the schedule: once on
-               the default path (knobs off: the flash kernels only) and once
-               with the knobs on (the seven kernels of that path);
+               the default path (knobs off: the flash kernels only), once
+               with the knobs on (the six kernels of that path: no conv3x3,
+               the upsamplers run phase convolutions), and once with the
+               knobs on for a rank-4 c3lier LoRA (`train_fused_c3lier`: LoRA
+               on every resnet and upsampler conv, so conv3x3 forward and dx,
+               and no gnconv3x3; `fused_launches`);
   9. cli     — the repo's default recipe through the port's own entry point,
                `leco_tpu_torch.train_lora.main` (what `python -m
                leco_tpu_torch.train_lora --config_file ...` runs): a random
@@ -76,7 +80,22 @@ Phases, each printing its result on a line of its own:
                and on at 768 px (equal loss, grads within 1e-2, one target
                forward's more forward launches, peak memory); the knobs
                LECO_FLASH_BWD=xla (no backward kernel, the kernels' grads) and
-               LECO_FLASH_CROSS=1 (cross-attention through the forward kernel).
+               LECO_FLASH_CROSS=1 (cross-attention through the forward kernel);
+ 11. infer   — inference and eval (`leco_tpu_torch.infer`, `.eval`) on phase
+               cli's file and the LoRA its default run trained, bf16, 512 px,
+               20 DDIM steps, guidance 7, cuDNN deterministic: the LoRA read
+               by `load_lora_weights` (and from a copy with `.alpha` doubled
+               and lora_up halved: the same tree); the A/B at -1/0/+1 with
+               exact launch counts (multiplier 0 equal to no LoRA, -1 and +1
+               not); the list form [(L, 0.5), (L, 0.5)] against L at 1.0 with
+               a control; one generation with LECO_FLASH_PACKED=1; a random
+               full-width VAE decoder and CLIP ViT-L/14 dual encoder
+               (`decode_latents` to uint8 (1, 512, 512, 3), the CLIP score,
+               `erased_concept_delta` over 2 seeds); seconds per DDIM step
+               and per image, decode and score ms beside the card's name and
+               power limit; and the phase-conv upsampler (the port's and
+               the JAX package's four-conv form) against materialise +
+               F.conv2d at SD1.5's three upsampler shapes.
 The knobs are the JAX package's: LECO_CONV_BACKEND=gemm, LECO_RESNET_FUSED=1,
 LECO_TPU_FUSED_GN=1, LECO_GEGLU=fused, and LECO_FLASH_PACKED=1. Then a JSON
 line with every kernel's launches, error, times (kernel, plain, library;
@@ -89,6 +108,7 @@ non-zero and prints no result. It needs CUDA and the rest of the repo.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -202,14 +222,40 @@ FUSED_KNOBS = {"LECO_CONV_BACKEND": "gemm", "LECO_RESNET_FUSED": "1",
 # relative to the plain output's largest magnitude (both round fp32 sums to
 # bf16 once; a bf16 ulp is 2^-8 of a value)
 RTOL_FUSED = 1e-2
-# Launches per UNet forward at SD1.5 512 px, rank-4 lierla, all knobs on:
-# 22 resnets x 2 convs (none has a LoRA branch); 16 transformer norms plus
-# conv_norm_out (the resnet norms become affines); 16 GEGLUs; the 3
-# upsampler convs (the phase-conv upsampler is not ported, so the
-# materialised 2x upsample feeds a hot 3x3 conv). The backward runs the
-# conv kernel once more per upsampler, for dx.
-FUSED_PER_FORWARD = {"gnconv3x3": 44, "group_norm": 17, "geglu": 16, "conv3x3": 3}
-CONV_DX_PER_BACKWARD = 3
+# Launches per UNet forward at SD1.5 512 px, rank-4 lierla, all knobs on
+# (`fused_launches`): 22 resnets x 2 convs through gnconv3x3 (none has a
+# LoRA branch); 16 transformer norms plus conv_norm_out (the resnet norms
+# become affines); 16 GEGLUs; no conv3x3: the 3 upsamplers run as phase
+# convolutions (no LoRA branch on them), as in the JAX package, so the
+# backward runs none either. A c3lier run keeps conv3x3 on a checked path.
+# SD1.5's UNet: resnets, upsamplers, transformer blocks (one norm and one
+# GEGLU each)
+SD15_RESNETS, SD15_UPSAMPLERS, SD15_TRANSFORMERS = 22, 3, 16
+
+
+def fused_launches(network: str, forwards: int, targets: int, resnets: int = SD15_RESNETS,
+                   upsamplers: int = SD15_UPSAMPLERS,
+                   transformers: int = SD15_TRANSFORMERS) -> dict:
+    """The fused kernels' launches in `forwards` UNet forwards with every
+    knob on, `targets` of them the differentiated target pass with its
+    backward. lierla: each resnet conv takes gnconv3x3 (its GroupNorm
+    collapsed to an affine), no conv3x3. c3lier: gnconv3x3 fuses no conv
+    the spec matches (the JAX package, models/unet.py:212-220), so every
+    resnet conv takes conv3x3 after a GroupNorm kernel on every pass; the
+    upsamplers take conv3x3 on the target pass only (with the LoRA branch
+    on the 2x upsample is materialised; folded and off passes run the
+    phase convolutions); the backward runs conv3x3 for the dx of every
+    conv3x3 of the target pass but the first resnet's conv1, whose input
+    (conv_in's output) needs no gradient."""
+    if network == "lierla":
+        return {"gnconv3x3": 2 * resnets * forwards, "group_norm": (transformers + 1) * forwards,
+                "geglu": transformers * forwards, "conv3x3": 0}
+    if network == "c3lier":
+        return {"gnconv3x3": 0, "group_norm": (2 * resnets + transformers + 1) * forwards,
+                "geglu": transformers * forwards,
+                "conv3x3": 2 * resnets * forwards + (upsamplers + 2 * resnets - 1 + upsamplers)
+                * targets}
+    raise ValueError(network)
 # (B, Cin, H, W, Cout): the upsampler convs at B = 2 (inner loop), the
 # level-0 one at the references' B = 3; dx runs at the target's B = 1
 CONV_SHAPES = [(2, 1280, 16, 16, 1280), (2, 1280, 32, 32, 1280), (2, 640, 64, 64, 640),
@@ -277,6 +323,29 @@ OPTIMIZERS = [("adamw", 1e-4, ""), ("adam", 1e-4, ""), ("lion", 1e-4, ""),
 OPTIMIZER_STEPS = 5
 RTOL_OPTIMIZER = 1e-5
 SD21_CHECKPOINT = Path("sd21") / "v2-1_random.safetensors"
+# phase infer: the README's A/B over AddNet weights at the generation
+# defaults (512 px, 20 DDIM steps, guidance 7), bf16, with phase cli's LoRA
+INFER_STEPS = 20
+INFER_MULTIPLIERS = (-1.0, 0.0, 1.0)
+INFER_PROMPT = "van gogh"
+CLIP_SEEDS = (0, 1)
+# the list form [(L, 0.5), (L, 0.5)] against the single form at 1.0: the
+# two runs' distance within RTOL_COMPOSE of the LoRA's own effect (the
+# single run's distance from the run without it); the control [(L, 0.5)]
+# sits about half the effect away and must fail it. The CLI's LoRA (3
+# iterations from lora_up = 0) moves no bf16 weight by an ulp when folded,
+# so this check takes it scaled by a power of two until its fold moves the
+# weights by COMPOSE_WEIGHT_SHARE of their RMS: an effect in the linear
+# regime, where the control sits near half of it (a much larger share
+# saturates the effect at the latents' own size)
+RTOL_COMPOSE = 0.1
+COMPOSE_WEIGHT_SHARE = 0.01
+# SD1.5's upsampler convs (B, C, H) at the inner loop's batch: the port's
+# phase convolutions (one conv of the four stacked 2x2 kernels), the JAX
+# package's literal form (four convs, one per phase) and the materialised
+# upsample + F.conv2d, bf16, each held to the fp32 conv of the materialised
+# input within RTOL_FUSED
+UPSAMPLER_SHAPES = [(2, 1280, 8), (2, 1280, 16), (2, 640, 32)]
 
 
 def wrappers() -> dict:
@@ -823,7 +892,7 @@ def phase_unet_fused(bundle, device) -> dict:
     check(tuple(out.shape) == (2, 4, 64, 64), f"UNet output shape {tuple(out.shape)}")
     check(err <= RTOL_UNET * size, f"UNet knobs on vs off {err} > {RTOL_UNET} x {size}")
     want = {**{k: 0 for k in FLASH}, "attn_fwd": FLASH_ATTENTIONS_PER_FORWARD,
-            PACKED: 0, **FUSED_PER_FORWARD}
+            PACKED: 0, **fused_launches("lierla", forwards=1, targets=0)}
     check(counts == want, f"per-forward launches {counts} != {want}")
     return {"max_abs_err": err, "max_abs_ref": size, "launches_per_forward": counts}
 
@@ -926,7 +995,8 @@ def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
 
 def phase_train(bundle, out_dir: Path, fused: bool = False) -> dict:
     """3 iterations of train(): the default path, or with `fused` the
-    fused configuration's knobs on. Every kernel's launches are checked."""
+    fused configuration's knobs on, on the bundle's LoRA network (lierla or
+    c3lier). Every kernel's launches are checked."""
     import torch
 
     from leco_tpu_torch.config import RootConfig
@@ -941,7 +1011,7 @@ def phase_train(bundle, out_dir: Path, fused: bool = False) -> dict:
     config = RootConfig.from_dict({
         "prompts_file": "(in-code)",
         "pretrained_model": {"name_or_path": "(random sd15 bundle)"},
-        "network": {"type": "lierla", "rank": 4, "alpha": 1.0,
+        "network": {"type": bundle.spec.network_type, "rank": 4, "alpha": 1.0,
                     "training_method": "full"},
         "train": {"precision": "bfloat16", "noise_scheduler": "ddim",
                   "iterations": iterations, "lr": 1e-4, "optimizer": "AdamW",
@@ -991,8 +1061,7 @@ def phase_train(bundle, out_dir: Path, fused: bool = False) -> dict:
         **{name: 0 for name in FUSED},
     }
     if fused:
-        want.update({name: n * forwards for name, n in FUSED_PER_FORWARD.items()})
-        want["conv3x3"] += CONV_DX_PER_BACKWARD * iterations
+        want.update(fused_launches(bundle.spec.network_type, forwards, iterations))
     check(counts == want, f"launches {counts} != {want}")
 
     last = out_dir / "van_gogh_last.safetensors"
@@ -1012,7 +1081,8 @@ def phase_train(bundle, out_dir: Path, fused: bool = False) -> dict:
     check(changed > 0, "no LoRA weight changed")
 
     per_iter = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
-    print(f"train seconds per iteration{' (knobs on)' if fused else ''}: "
+    print(f"train seconds per iteration{' (knobs on)' if fused else ''}"
+          f" ({bundle.spec.network_type}): "
           f"{json.dumps(per_iter)} (timesteps_to {tsto})", flush=True)
     return {"losses": losses, "timesteps_to": tsto, "launches": counts,
             "seconds": seconds, "seconds_per_iteration": per_iter,
@@ -1557,6 +1627,252 @@ def optimizer_checks(tree: dict, device) -> dict:
             "steps": OPTIMIZER_STEPS, **rows}
 
 
+def four_phase_convs(x, w, bias):
+    """The JAX package's `_phase_conv_up2x` as it is written (lora.py:
+    347-381): four convs, each a 2x2 phase kernel over x padded on two
+    sides, interleaved by a stack and a transpose (for timing only)."""
+    import torch
+    import torch.nn.functional as F
+
+    n, _, h, wd = x.shape
+    outs = []
+    for a in (0, 1):
+        rows = (w[:, :, 0], w[:, :, 1] + w[:, :, 2]) if a == 0 else (w[:, :, 0] + w[:, :, 1], w[:, :, 2])
+        ka = torch.stack(rows, dim=2)
+        for b in (0, 1):
+            cols = (ka[..., 0], ka[..., 1] + ka[..., 2]) if b == 0 else (ka[..., 0] + ka[..., 1], ka[..., 2])
+            pad = (1 - b, b, 1 - a, a)
+            outs.append(F.conv2d(F.pad(x, pad), torch.stack(cols, dim=3)))
+    z = torch.stack(outs).reshape(2, 2, n, -1, h, wd).permute(2, 3, 4, 0, 5, 1)
+    return z.reshape(n, -1, 2 * h, 2 * wd) + bias[None, :, None, None]
+
+
+def upsampler_times(device) -> list:
+    """The phase-conv upsampler (the port's, and the JAX package's literal
+    four convs) against materialise + F.conv2d at SD1.5's three upsampler
+    shapes, bf16: the error of each against the fp32 conv of the
+    materialised input, and `device_ms` of each."""
+    import torch
+    import torch.nn.functional as F
+
+    from leco_tpu_torch.kernels import timing
+    from leco_tpu_torch.lora import LoRAConv2d
+
+    gen = torch.Generator(device)
+    gen.manual_seed(5)
+    rows = []
+    for b, c, h in UPSAMPLER_SHAPES:
+        conv = LoRAConv2d(c, c, 3, padding=1, pre_upsample=True).to(device)
+        conv.weight.data = (torch.randn((c, c, 3, 3), generator=gen, device=device)
+                            / math.sqrt(9 * c)).to(torch.bfloat16)
+        conv.bias.data = torch.randn((c,), generator=gen, device=device).to(torch.bfloat16)
+        x = torch.randn((b, c, h, h), generator=gen, device=device).to(torch.bfloat16)
+
+        def materialised():
+            return F.conv2d(F.interpolate(x, scale_factor=2.0, mode="nearest"), conv.weight,
+                            conv.bias, 1, 1)
+
+        with torch.no_grad():
+            ref = F.conv2d(F.interpolate(x.float(), scale_factor=2.0, mode="nearest"),
+                           conv.weight.float(), conv.bias.float(), 1, 1)
+            size = ref.abs().max().item()
+            forms = {"phase": lambda: conv(x),
+                     "four_convs": lambda: four_phase_convs(x, conv.weight, conv.bias),
+                     "materialised": materialised}
+            errs = {name: (fn().float() - ref).abs().max().item() for name, fn in forms.items()}
+            for name, err in errs.items():
+                check(err <= RTOL_FUSED * size, f"upsampler {name} at {(b, c, h)}: {err} > "
+                                                f"{RTOL_FUSED} x {size}")
+            row = {"shape": [b, c, h, h], "max_abs_err": errs, "max_abs_ref": size,
+                   **{f"{name}_device_ms": timing.device_ms(fn) for name, fn in forms.items()}}
+        print(f"infer upsampler {json.dumps(row)}", flush=True)
+        rows.append(row)
+    return rows
+
+
+def phase_infer(device, ckpt: Path, out_dir: Path) -> dict:
+    """Inference and eval at full width: phase cli's random SD2.1 file and
+    the LoRA its default run trained, through `leco_tpu_torch.infer` (bf16,
+    512 px, 20 DDIM steps, guidance 7, cuDNN deterministic):
+    1. the LoRA read by `load_lora_weights`, and from a copy whose `.alpha`
+       is doubled and `lora_up` halved, read under the spec: the same tree;
+    2. the A/B at -1/0/+1 (`ab_compare`) with exact launch counts, 0 equal
+       to a run without the LoRA, -1 and +1 different from it, the copy's
+       tree giving the +1 latents;
+    3. the list form against the single form (RTOL_COMPOSE, a control);
+    4. one generation with LECO_FLASH_PACKED=1, exact packed launches;
+    5. a random full-width SD VAE decoder: `decode_latents` to uint8
+       (1, 512, 512, 3); a random CLIP ViT-L/14 dual encoder: the CLIP
+       score, and `erased_concept_delta` over CLIP_SEEDS;
+    6. the phase-conv upsampler against materialise + F.conv2d."""
+    import numpy as np
+    import torch
+
+    from leco_tpu_torch import infer, testing
+    from leco_tpu_torch.eval import CLIPScorer, erased_concept_delta
+    from leco_tpu_torch.lora import (
+        LoRASpec,
+        fold_lora_params,
+        load_lora_weights,
+        lora_layers,
+        lora_parameters,
+        read_safetensors,
+        scale_lora_tree,
+        write_safetensors,
+    )
+    from leco_tpu_torch.models import loader
+    from leco_tpu_torch.utils import yaml_subset
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    saved_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        net = yaml_subset.load(REPO / "examples" / "config.yaml")["network"]
+        spec = LoRASpec(rank=net["rank"], alpha=net["alpha"], network_type=net["type"],
+                        train_method=net["training_method"])
+        models, load_s = synced(lambda: loader.load_models(
+            str(ckpt), v2=True, v_pred=True, weight_dtype=torch.bfloat16, lora_spec=spec,
+            attn_backend="flash", device=device))
+        ref = lora_parameters(models.unet)
+
+        # ---- 1. the trained LoRA, and a copy with its alpha rewritten
+        lora_file = out_dir / "default" / "van_gogh_last.safetensors"
+        lora = load_lora_weights(lora_file, ref, spec)
+        check(lora.keys() == ref.keys(), "the LoRA file does not cover the model's layers")
+        state, metadata = read_safetensors(lora_file)
+        for k in state:
+            if k.endswith(".alpha"):
+                state[k] = state[k] * 2
+            elif k.endswith(".lora_up.weight"):
+                state[k] = state[k] / 2
+        copy = out_dir / "van_gogh_alpha2.safetensors"
+        write_safetensors(copy, state, metadata)
+        rescaled = load_lora_weights(copy, ref, spec)
+        unscaled = load_lora_weights(copy, ref)  # the control: no rescale
+        check(all(torch.equal(rescaled[k], v) for k, v in lora.items()),
+              "the alpha-2 copy read under the spec is not the LoRA")
+        check(not all(torch.equal(unscaled[k], v) for k, v in lora.items()),
+              "the alpha-2 copy read without the spec is the LoRA")
+
+        # ---- 2. the A/B grid
+        gen = infer.GenerationConfig(height=512, width=512, num_inference_steps=INFER_STEPS,
+                                     guidance_scale=7.0, seed=0)
+        plain, first_s = synced(lambda: infer.generate_latents(models, INFER_PROMPT, gen=gen))
+        reset_launches()
+        grid, ab_s = synced(lambda: infer.ab_compare(models, lora, INFER_PROMPT,
+                                                     multipliers=INFER_MULTIPLIERS, gen=gen))
+        counts = launches()
+        want = flash_launches(len(INFER_MULTIPLIERS) * INFER_STEPS, 0)
+        check(counts == want, f"A/B launches {counts} != {want}")
+        for m, lat in grid.items():
+            check(tuple(lat.shape) == (1, 4, 64, 64) and bool(torch.isfinite(lat).all()),
+                  f"latents at {m}: {tuple(lat.shape)}, finite {bool(torch.isfinite(lat).all())}")
+        check(torch.equal(grid[0.0], plain), "multiplier 0 is not the run without the LoRA")
+        moved = {m: (grid[m] - plain).abs().max().item() for m in (-1.0, 1.0)}
+        check(all(v > 0 for v in moved.values()), f"-1 / +1 equal to multiplier 0: {moved}")
+        again = infer.generate_latents(models, INFER_PROMPT, gen=gen, lora=rescaled)
+        check(torch.equal(again, grid[1.0]), "the alpha-2 copy's latents differ at +1")
+        per_image = ab_s / len(INFER_MULTIPLIERS)
+        out["ab"] = {"launches": counts, "seconds": ab_s, "seconds_per_image": per_image,
+                     "seconds_per_ddim_step": per_image / INFER_STEPS,
+                     "first_image_seconds": first_s, "load_seconds": load_s,
+                     "max_abs_moved_from_0": moved}
+
+        # ---- 3. the list form against the single form
+        weights = {f"{n}.weight": m.weight.float() for n, m in lora_layers(models.unet)}
+        folded = fold_lora_params(weights, lora, spec)
+        delta_rms = math.sqrt(sum(((folded[k] - w) ** 2).sum().item() for k, w in weights.items())
+                              / sum(w.numel() for w in weights.values()))
+        w_rms = math.sqrt(sum((w ** 2).sum().item() for w in weights.values())
+                          / sum(w.numel() for w in weights.values()))
+        factor = 2.0 ** round(math.log2(COMPOSE_WEIGHT_SHARE * w_rms / delta_rms))
+        strong = scale_lora_tree(lora, factor)
+        single = infer.generate_latents(models, INFER_PROMPT, gen=gen, lora=strong)
+        listed = infer.generate_latents(models, INFER_PROMPT, gen=gen,
+                                        lora=[(strong, 0.5), (strong, 0.5)], spec=spec)
+        control = infer.generate_latents(models, INFER_PROMPT, gen=gen, lora=[(strong, 0.5)],
+                                         spec=spec)
+        effect = (single - plain).abs().max().item()
+        err = (listed - single).abs().max().item()
+        control_err = (control - single).abs().max().item()
+        limit = RTOL_COMPOSE * effect
+        check(err <= limit, f"list form vs single: {err} > {RTOL_COMPOSE} x {effect}")
+        check(control_err > limit, f"the compose limit {limit} passes [(L, 0.5)] ({control_err})")
+        out["compose"] = {"factor": factor, "weight_rms": w_rms, "delta_rms": delta_rms,
+                          "effect": effect, "err": err, "limit": limit,
+                          "control_err": control_err}
+        del weights, folded, strong
+
+        # ---- 4. the packed route
+        with environ({"LECO_FLASH_PACKED": "1"}):
+            reset_launches()
+            packed, packed_s = synced(lambda: infer.generate_latents(
+                models, INFER_PROMPT, gen=gen, lora=lora))
+            packed_counts = launches()
+        want = {**{name: 0 for name in KERNELS},
+                PACKED: FLASH_ATTENTIONS_PER_FORWARD * INFER_STEPS}
+        check(packed_counts == want, f"packed launches {packed_counts} != {want}")
+        check(bool(torch.isfinite(packed).all()), "non-finite packed latents")
+        out["packed"] = {"launches": packed_counts, "seconds": packed_s,
+                         "max_abs_diff_vs_3d": (packed - grid[1.0]).abs().max().item()}
+
+        # ---- 5. the VAE decoder and the CLIP scorer at full width
+        (_, write_s) = synced(lambda: (
+            testing.write_vae_dir(out_dir / "vae_model", seed=0, device=device),
+            testing.write_clip_dir(out_dir / "clip", seed=0, dtype=torch.float16,
+                                   device=device)))
+        vae = loader.load_vae_decoder(str(out_dir / "vae_model"), torch.float32, device)
+        scorer = CLIPScorer.from_pretrained(str(out_dir / "clip"), device=device)
+        decodes, scores = [], []
+        for _ in range(3):
+            images, t = synced(lambda: infer.decode_latents(models, grid[0.0], vae))
+            decodes.append(t)
+            score, t = synced(lambda: scorer.score(images, [INFER_PROMPT]))
+            scores.append(t)
+        check(images.dtype == np.uint8 and images.shape == (1, 512, 512, 3),
+              f"decoded {images.dtype} {images.shape}")
+        check(len(np.unique(images)) > 16, "the decoded image is flat")
+        check(score.shape == (1,) and bool(np.isfinite(score).all()), f"CLIP score {score}")
+        # random towers: the cosine before the clip at 0 shows the score ran
+        cosine = torch.nn.functional.cosine_similarity(
+            scorer.image_embeds(images), scorer.text_embeds([INFER_PROMPT])).item()
+
+        def generate_fn(prompt, seed, multiplier):
+            return infer.generate_latents(models, prompt, gen=dataclasses.replace(gen, seed=seed),
+                                          lora=lora, multiplier=multiplier)
+
+        erased, erased_s = synced(lambda: erased_concept_delta(
+            scorer, lambda lat: infer.decode_latents(models, lat, vae), generate_fn,
+            INFER_PROMPT, seeds=CLIP_SEEDS))
+        check(all(math.isfinite(v) for v in erased.values()), f"erased_concept_delta {erased}")
+        out["eval"] = {"write_seconds": write_s, "vae_decode_ms": statistics.median(decodes) * 1e3,
+                       "clip_score_ms": statistics.median(scores) * 1e3, "clip_score": float(score[0]),
+                       "clip_cosine": cosine,
+                       "erased_concept_delta": erased, "erased_seconds": erased_s}
+        del models, vae, scorer
+        torch.cuda.empty_cache()
+
+        # ---- 6. the phase-conv upsampler
+        out["upsampler"] = upsampler_times(device)
+    finally:
+        torch.backends.cudnn.deterministic = saved_deterministic
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"infer ({smi}): {out['ab']['seconds_per_ddim_step']:.4f} s per DDIM step, "
+          f"{out['ab']['seconds_per_image']:.3f} s per image (512 px, {INFER_STEPS} steps, "
+          f"CFG batch 2), VAE decode {out['eval']['vae_decode_ms']:.1f} ms, CLIP score "
+          f"{out['eval']['clip_score_ms']:.1f} ms", flush=True)
+    return {**out, "nvidia_smi": smi}
+
+
 def main() -> None:
     import torch
 
@@ -1564,6 +1880,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: CUDA is not available; this script needs one GPU")
     sys.path.insert(0, str(REPO))
     from leco_tpu_torch.kernels import roofline
+    from leco_tpu_torch.lora import LoRASpec
     from leco_tpu_torch.testing import make_sd15_bundle
 
     device = torch.device("cuda", 0)
@@ -1595,18 +1912,30 @@ def main() -> None:
     phase("train_fused", train_fused)
     del bundle
     torch.cuda.empty_cache()
+    # c3lier: LoRA on every resnet and upsampler conv, so the resnet convs
+    # take conv3x3 (never gnconv3x3) and the upsamplers do on the target pass
+    bundle = make_sd15_bundle(dtype=torch.bfloat16, seed=0, device=device,
+                              spec=LoRASpec(rank=4, alpha=1.0, network_type="c3lier"))
+    with tempfile.TemporaryDirectory() as tmp:
+        train_c3lier = phase_train(bundle, Path(tmp), fused=True)
+    phase("train_fused_c3lier", train_c3lier)
+    del bundle
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         cli = phase_cli(device, Path(tmp))
         phase("cli", cli)
         phase("recipes", phase_recipes(device, Path(tmp) / SD21_CHECKPOINT, Path(tmp)))
+        phase("infer", phase_infer(device, Path(tmp) / SD21_CHECKPOINT, Path(tmp)))
 
     # each kernel's launches come from the run of the path it is on: the
     # flash kernels from the default path, the fused ones from the knobs-on
-    # path, the packed one from the CLI's LECO_FLASH_PACKED=1 run (each
+    # lierla path but conv3x3 from the knobs-on c3lier path (lierla runs
+    # none), the packed one from the CLI's LECO_FLASH_PACKED=1 run (each
     # driven with the counts at 0 just before it)
     measured = {**{n: (kernels, train_result) for n in FLASH},
                 PACKED: (kernels, cli["packed"]),
-                **{n: (fused_kernels, train_fused) for n in FUSED}}
+                **{n: (fused_kernels, train_fused) for n in FUSED},
+                "conv3x3": (fused_kernels, train_c3lier)}
     timed_shapes = {**TIMED_SHAPE, PACKED: PACKED_TIMED, **FUSED_TIMED}
     print(json.dumps({"kernels": [
         {

@@ -25,6 +25,16 @@ fused resnet of `ops/gn_conv.py`) and sends hot 3x3 convs to the
 implicit-GEMM kernel under `LECO_CONV_BACKEND=gemm` (`ops/conv.py`). The
 LoRA branch is added after either kernel.
 
+The tree operations of the JAX package work on the port's flat trees
+({"<layer>.lora_down": t, "<layer>.lora_up": t}): `scale_lora_tree` (the
+AddNet weight), `fold_lora_params` and `compose_lora_params` (several LoRAs
+folded into one base-shaped state dict), and `load_lora_weights` (an AddNet
+file back into a tree, with the file-alpha rescale).
+
+An upsampler conv (`pre_upsample`) takes the input before its nearest-2x
+upsample and, with no LoRA branch on, runs as four 2x2 phase convolutions
+at the input's resolution, as the JAX package's `LoRAConv` does.
+
 Export writes the A1111-AddNet / kohya layout,
 `lora_unet_<path>.{lora_down.weight, lora_up.weight, alpha}`, to
 `.safetensors` with a small writer of its own (8-byte little-endian header
@@ -210,13 +220,17 @@ class LoRAConv2d(_LoRALayer):
     min(rank, in, out) (reference lora.py:72)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, bias: bool = True):
+                 stride: int = 1, padding: int = 0, bias: bool = True,
+                 pre_upsample: bool = False):
         super().__init__()
+        if pre_upsample and (kernel_size, stride, padding) != (3, 1, 1):
+            raise ValueError("pre_upsample needs a 3x3, stride-1, pad-1 conv")
         self.in_channels = in_channels
         self.out_channels = out_channels
         self.kernel_size = kernel_size
         self.stride = stride
         self.padding = padding
+        self.pre_upsample = pre_upsample
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel_size, kernel_size)
         )
@@ -252,12 +266,54 @@ class LoRAConv2d(_LoRALayer):
         return (not self.has_lora and self._is_hot_3x3()
                 and gn_conv.supports(x.shape, self.out_channels, x.dtype, x.device))
 
+    def _phase_conv_up2x(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Nearest-2x upsample followed by this 3x3/s1/p1 conv, as four 2x2
+        phase convolutions at x's resolution (the JAX package's
+        `LoRAConv._phase_conv_up2x`, lora.py:347-381). Output phase (a, b)
+        lands at upsampled pixel (2y+a, 2x+b); the duplicated rows fold tap
+        rows {1,2} (a = 0) or {0,1} (a = 1) of the kernel together, and
+        likewise the columns, and phase (a, b) reads x padded by a zero row
+        above (a = 0) or below (a = 1) and a column left or right. The tap
+        sums are taken in w's dtype, the compute dtype. The four convs run
+        as one, over x padded on every side, with the four 2x2 kernels
+        stacked along the output channels; phase (a, b) is then the window
+        of its output that starts at (a, b)."""
+        n, _, h, wd = x.shape
+        kernels = []
+        for a in (0, 1):
+            rows = ((w[:, :, 0], w[:, :, 1] + w[:, :, 2]) if a == 0
+                    else (w[:, :, 0] + w[:, :, 1], w[:, :, 2]))
+            ka = torch.stack(rows, dim=2)  # (Cout, Cin, 2, 3)
+            for b in (0, 1):
+                cols = ((ka[..., 0], ka[..., 1] + ka[..., 2]) if b == 0
+                        else (ka[..., 0] + ka[..., 1], ka[..., 2]))
+                kernels.append(torch.stack(cols, dim=3))  # (Cout, Cin, 2, 2)
+        y = F.conv2d(F.pad(x, (1, 1, 1, 1)), torch.cat(kernels))  # (B, 4·Cout, H+1, W+1)
+        y = y.unflatten(1, (2, 2, -1))
+        out = y.new_empty((n, y.shape[3], 2 * h, 2 * wd))
+        for a in (0, 1):
+            for b in (0, 1):
+                out[:, :, a::2, b::2] = y[:, a, b, :, a:a + h, b:b + wd]
+        return out
+
     def forward(self, x: torch.Tensor, affine=None) -> torch.Tensor:
         """`affine=(a, s)`, where `fuses_group_norm(x)`: x is the
         un-normalised input of a GroupNorm(+SiLU) collapsed to the
         per-(batch, channel) affine (a, s), and the fused kernel applies
-        silu(a·x + s) as it runs the conv."""
+        silu(a·x + s) as it runs the conv.
+
+        A `pre_upsample` conv takes x before its nearest-2x upsample. With
+        its LoRA branch not on (no LoRA, mode off or folded) it runs the
+        phase convolutions and never materialises the upsample; with the
+        branch on (c3lier) the branch needs the upsampled input, so it is
+        materialised and the conv runs as any other (the JAX package's
+        choice, lora.py:384-399)."""
         dt = x.dtype
+        if self.pre_upsample:
+            if not self._branch_on():
+                y = self._phase_conv_up2x(x, self._weight().to(dt))
+                return y if self.bias is None else y + self.bias.to(dt)[None, :, None, None]
+            x = F.interpolate(x, scale_factor=2.0, mode="nearest")
         if affine is not None:
             a, s = affine
             return gn_conv.affine_silu_conv(
@@ -368,6 +424,26 @@ def fold_lora_params(base: dict, lora: dict, spec: LoRASpec) -> dict:
     return out
 
 
+def compose_lora_params(base: dict, loras, spec: LoRASpec) -> dict:
+    """Fold several LoRAs into one base-shaped state dict (the multi-AddNet
+    composition): `loras` is a list of (tree, multiplier) pairs, folded in
+    order as W + m1·d1 + m2·d2 + ..., multiplier 0 skipped. Trees from files
+    with other alphas come through `load_lora_weights(..., spec=spec)`,
+    which puts them on this spec's alpha/rank scale."""
+    out = base
+    for tree, multiplier in loras:
+        if multiplier == 0.0:
+            continue
+        out = fold_lora_params(out, scale_lora_tree(tree, multiplier), spec)
+    return out
+
+
+def scale_lora_tree(lora: dict, multiplier: float) -> dict:
+    """The LoRA's contribution times `multiplier` (the AddNet weight): it is
+    linear in `lora_up`, so only those leaves are scaled."""
+    return {k: v * multiplier if k.endswith(".lora_up") else v for k, v in lora.items()}
+
+
 def lora_module_names(lora: dict) -> list[str]:
     """Export-layer names 'lora_unet_<path>' per layer, checked unique (the
     reference's duplicate-name guard, lora.py:139-144)."""
@@ -464,3 +540,40 @@ def save_lora_weights(file: str | os.PathLike, lora: dict, spec: LoRASpec,
         write_safetensors(file, state, metadata)
     else:
         torch.save(state, file)
+
+
+def load_lora_weights(file: str | os.PathLike, reference_lora: dict,
+                      spec: Optional[LoRASpec] = None) -> dict:
+    """An AddNet `.safetensors` -> a LoRA tree shaped like `reference_lora`
+    ({"<layer>.lora_down": t, "<layer>.lora_up": t}, fp32, on the reference
+    tensors' devices). A file name is resolved through the reference's
+    layers, since an underscore in it may have been a dot or not; a layer
+    that matches none raises KeyError. With `spec`, a layer whose file
+    `.alpha` differs from `spec.stored_alpha` has its `lora_up` rescaled by
+    alpha_file / stored_alpha, so that the model's scale stored_alpha / r
+    applies the file's contribution."""
+    state, _ = read_safetensors(file)
+    layers = {k.rsplit(".", 1)[0] for k in reference_lora}
+    by_name = {LORA_PREFIX_UNET + "_" + layer.replace(".", "_"): layer for layer in layers}
+    alphas = {key[: -len(".alpha")]: float(v) for key, v in state.items()
+              if key.endswith(".alpha")}
+    out = {}
+    for key, value in state.items():
+        name = key.rsplit(".", 1)[0]
+        if not name.endswith((".lora_down", ".lora_up")):
+            continue  # the ".alpha" entries were read above
+        file_layer, part = name.rsplit(".", 1)
+        layer = by_name.get(file_layer)
+        if layer is None:
+            raise KeyError(f"LoRA key {key} does not match any model layer")
+        v = value.float()
+        if part == "lora_up" and spec is not None and file_layer in alphas:
+            factor = alphas[file_layer] / spec.stored_alpha
+            if factor != 1.0:
+                v = v * factor
+        ref = reference_lora[f"{layer}.{part}"]
+        if v.shape != ref.shape:
+            raise ValueError(f"LoRA key {key} has shape {tuple(v.shape)}, the model's "
+                             f"{layer}.{part} {tuple(ref.shape)}")
+        out[f"{layer}.{part}"] = v.to(ref.device)
+    return {k: out[k] for k in reference_lora if k in out}

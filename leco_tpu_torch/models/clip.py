@@ -92,7 +92,8 @@ class CLIPAttention(nn.Module):
         d = c // self.heads
         q, k, v = (p(x).reshape(b, n, self.heads, d) for p in (self.q_proj, self.k_proj, self.v_proj))
         logits = torch.einsum("bqhd,bkhd->bhqk", q * d**-0.5, k).float()
-        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+        if mask is not None:  # the vision tower attends without a mask
+            logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, n, c)
         return self.out_proj(out)

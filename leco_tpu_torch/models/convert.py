@@ -19,10 +19,18 @@ flax layout step has no counterpart here.
 
 `diffusers_unet_to_ldm` and `hf_clip_to_openclip` are their inverses, for
 writing a single-file checkpoint (`leco_tpu_torch.testing`).
+
+`vae_decoder_state` keeps the decoder half of a diffusers AutoencoderKL
+state dict with the legacy attention names (query/key/value/proj_attn,
+1x1-conv shaped) renamed, as the JAX package's `torch_vae_decoder_to_flax`
+reads them. `flax_vae_decoder_to_torch` and `flax_clip_vision_to_torch`
+carry the JAX package's VAE decoder and CLIP vision trees to the port's
+state dicts, as `flax_unet_to_torch` does the UNet's.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
@@ -307,3 +315,86 @@ def hf_clip_to_openclip(state_dict: Mapping[str, torch.Tensor]) -> dict[str, tor
     if sd:
         raise ValueError(f"keys with no OpenCLIP counterpart: {sorted(sd)[:10]}")
     return {OPENCLIP_PREFIX + k: v for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# the VAE decoder and the CLIP vision tower
+# ---------------------------------------------------------------------------
+
+_VAE_LEGACY_ATTENTION = {"query": "to_q", "key": "to_k", "value": "to_v",
+                         "proj_attn": "to_out.0", "q": "to_q", "k": "to_k", "v": "to_v",
+                         "proj_out": "to_out.0"}
+
+
+def vae_decoder_state(state_dict: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A diffusers AutoencoderKL state dict -> its `post_quant_conv.*` and
+    `decoder.*` tensors, the mid-block attention under the current names."""
+    out = {}
+    for name, t in state_dict.items():
+        if not name.startswith(("post_quant_conv.", "decoder.")):
+            continue
+        m = re.fullmatch(r"(decoder\.mid_block\.attentions\.\d+)\.(\w+)\.(weight|bias)", name)
+        if m and m[2] in _VAE_LEGACY_ATTENTION:
+            name = f"{m[1]}.{_VAE_LEGACY_ATTENTION[m[2]]}.{m[3]}"
+            if t.ndim == 4:  # a 1x1-conv projection
+                t = t[:, :, 0, 0]
+        out[name] = t
+    return out
+
+
+def _torch_leaf(name: str, leaf: str, v: np.ndarray) -> tuple[str, np.ndarray]:
+    if leaf == "kernel":
+        return f"{name}.weight", v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
+    if leaf == "scale":
+        return f"{name}.weight", v
+    if leaf == "bias":
+        return f"{name}.bias", v
+    raise KeyError(f"unknown parameter leaf {leaf} of {name}")
+
+
+def flax_vae_decoder_to_torch(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's VAEDecoder tree -> the port's VAEDecoder state_dict
+    (`up_blocks_0_resnets_1` -> `decoder.up_blocks.0.resnets.1`,
+    `to_out_0` -> `to_out.0`, `post_quant_conv` at the top)."""
+    out = {}
+    for path, v in _flatten(params).items():
+        head, *subs, leaf = path
+        m = re.fullmatch(r"(mid_block|up_blocks_(\d+))_(resnets|attentions|upsamplers)_(\d+)",
+                         head)
+        if head == "post_quant_conv":
+            name = head
+        elif m:
+            block = "mid_block" if m[2] is None else f"up_blocks.{m[2]}"
+            name = f"decoder.{block}.{m[3]}.{m[4]}"
+        else:
+            name = f"decoder.{head}"
+        for sub in subs:
+            name += ".to_out.0" if sub == "to_out_0" else f".{sub}"
+        key, t = _torch_leaf(name, leaf, v)
+        out[key] = t
+    return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def flax_clip_vision_to_torch(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX package's CLIPVisionModel tree -> the port's (HF-named)
+    CLIPVisionModel state_dict."""
+    out = {}
+    emb = "vision_model.embeddings"
+    for path, v in _flatten(params).items():
+        if path == ("class_embedding",):
+            out[f"{emb}.class_embedding"] = v
+        elif path == ("patch_embedding", "kernel"):
+            out[f"{emb}.patch_embedding.weight"] = v.transpose(3, 2, 0, 1)
+        elif path == ("position_embedding", "embedding"):
+            out[f"{emb}.position_embedding.weight"] = v
+        elif path[0] == "visual_projection":
+            out["visual_projection.weight"] = v.T
+        elif path[0] in ("pre_layrnorm", "post_layernorm"):
+            key, t = _torch_leaf(f"vision_model.{path[0]}", path[-1], v)
+            out[key] = t
+        else:  # ("layers_N", "self_attn", "q_proj", leaf) / ("layers_N", "mlp_fc1", leaf)
+            layer = "vision_model.encoder.layers." + path[0].split("_")[1]
+            mods = [m.replace("mlp_", "mlp.") for m in path[1:-1]]
+            key, t = _torch_leaf(".".join([layer, *mods]), path[-1], v)
+            out[key] = t
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in out.items()}

@@ -10,7 +10,9 @@ tensor and the tokenizer come from the local path.
     with weights_only=True), or shards named by a `*.index.json`;
   * LDM single file (`.safetensors` or `.ckpt`): keys remapped by
     `models/convert.py`, the UNet config fixed by the `v2` flag and checked
-    against the tensors, and a `tokenizer/` directory beside the file.
+    against the tensors, and a `tokenizer/` directory beside the file;
+  * the VAE decoder (`load_vae_decoder`): a diffusers dir's `vae/`, or a
+    standalone VAE dir, for inference.
 
 The UNet is built on the meta device and takes the checkpoint's tensors as
 its parameters (`load_state_dict(assign=True)`), so a full-width model is
@@ -37,6 +39,7 @@ from leco_tpu_torch.models.clip import (
     sd1_text_config,
     sd2_text_config,
 )
+from leco_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
 from leco_tpu_torch.models.tokenizer import CLIPTokenizer
 from leco_tpu_torch.models.unet import (
     UNet2DConditionModel,
@@ -44,6 +47,8 @@ from leco_tpu_torch.models.unet import (
     sd15_config,
     sd21_config,
 )
+from leco_tpu_torch.models.vae import GroupNorm as VAEGroupNorm
+from leco_tpu_torch.models.vae import VAEDecoder, VAEDecoderConfig
 from leco_tpu_torch.ops.schedulers import NoiseScheduler, create_noise_scheduler
 
 COMPONENT_FILES = (
@@ -222,6 +227,18 @@ def build_text_encoder(config: CLIPTextConfig, sd: dict[str, torch.Tensor],
     return model
 
 
+def build_clip_vision(config: CLIPVisionConfig, sd: dict[str, torch.Tensor],
+                      weight_dtype: torch.dtype, device) -> CLIPVisionModel:
+    """HF CLIP keys (`vision_model.*`, `visual_projection.weight`; other
+    keys are left out) -> the port's CLIPVisionModel, every parameter in
+    `weight_dtype`."""
+    with torch.device("meta"):
+        model = CLIPVisionModel(config)
+    dtypes = {name: (weight_dtype, weight_dtype) for name in model.state_dict()}
+    _assign(model, sd, dtypes, device, "CLIP vision tower")
+    return model
+
+
 def _scheduler(name: str, v_pred: bool) -> NoiseScheduler:
     return create_noise_scheduler(
         name, prediction_type="v_prediction" if v_pred else "epsilon")
@@ -324,3 +341,41 @@ def _load_single_file(path, scheduler_name, v2, v_pred, weight_dtype, clip_skip,
     return LoadedModels(
         tokenizer=CLIPTokenizer.from_pretrained(tok_dir), text_encoder=te, unet=unet,
         scheduler=_scheduler(scheduler_name, v_pred), unet_config=unet_config)
+
+
+def load_vae_decoder(pretrained_model_name_or_path: str,
+                     weight_dtype: torch.dtype = torch.float32,
+                     device: str | torch.device = "cuda") -> VAEDecoder:
+    """The VAE decoder of a diffusers dir's `vae/` subfolder, or of a
+    standalone VAE dir (a `config.json` with `latent_channels` or
+    `scaling_factor`), on `device`: conv and linear weights in
+    `weight_dtype`, norm parameters rounded to it and kept fp32. Raises
+    FileNotFoundError where there is none."""
+    path = pretrained_model_name_or_path
+    for sub in ("vae", ""):
+        d = os.path.join(path, sub) if sub else path
+        if os.path.exists(os.path.join(d, "config.json")):
+            with open(os.path.join(d, "config.json")) as f:
+                cfg_json = json.load(f)
+            if "latent_channels" in cfg_json or "scaling_factor" in cfg_json:
+                path = d
+                break
+    else:
+        raise FileNotFoundError(f"no VAE config.json under {path}")
+    config = VAEDecoderConfig(
+        latent_channels=cfg_json.get("latent_channels", 4),
+        out_channels=cfg_json.get("out_channels", 3),
+        block_out_channels=tuple(cfg_json.get("block_out_channels", (128, 256, 512, 512))),
+        layers_per_block=cfg_json.get("layers_per_block", 2),
+        norm_num_groups=cfg_json.get("norm_num_groups", 32),
+        scaling_factor=cfg_json.get("scaling_factor", 0.18215),
+    )
+    sd = convert.vae_decoder_state(load_component_tensors(path))
+    with torch.device("meta"):
+        vae = VAEDecoder(config, dtype=weight_dtype)
+    norms = {f"{name}.{leaf}" for name, mod in vae.named_modules()
+             if isinstance(mod, VAEGroupNorm) for leaf in ("weight", "bias")}
+    dtypes = {name: (weight_dtype, torch.float32 if name in norms else weight_dtype)
+              for name in vae.state_dict()}
+    _assign(vae, sd, dtypes, torch.device(device), "VAE decoder")
+    return vae

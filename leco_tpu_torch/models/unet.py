@@ -5,7 +5,8 @@ UNet the parity tests use (`tests/torch_unet_ref.py`): pre-norm resnets with
 the time embedding added between convs, Transformer2DModel with GN(eps 1e-6)
 and conv-or-linear projections, pre-LN transformer blocks (attn1 -> attn2 ->
 GEGLU FF), the skip stack popped in reverse, nearest-2x upsample before the
-up conv, and the [cos, sin] timestep sinusoid. Module names follow diffusers'
+up conv (folded into it as phase convolutions where no LoRA branch is on),
+and the [cos, sin] timestep sinusoid. Module names follow diffusers'
 state_dict naming, so LoRA export keys are a path join and
 `models/convert.py` maps the JAX parameter tree one to one.
 
@@ -325,12 +326,16 @@ class Downsample2D(nn.Module):
 
 
 class Upsample2D(nn.Module):
+    """Nearest-2x upsample then a 3x3 conv, the upsample folded into the
+    conv (`LoRAConv2d(pre_upsample=True)`: phase convolutions unless a LoRA
+    branch on the conv is on)."""
+
     def __init__(self, ch):
         super().__init__()
-        self.conv = LoRAConv2d(ch, ch, 3, padding=1)
+        self.conv = LoRAConv2d(ch, ch, 3, padding=1, pre_upsample=True)
 
     def forward(self, x):
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        return self.conv(x)
 
 
 class CrossAttnDownBlock2D(nn.Module):

@@ -12,7 +12,12 @@ loader reads, for the CLI: `write_single_file_checkpoint` an SD2-style LDM
 `.safetensors` (the UNet through the inverse of the port's UNet remap, the
 OpenCLIP tower through the inverse of `ldm_openclip_to_hf`) with a
 `tokenizer/` beside it, and `write_diffusers_checkpoint` a diffusers
-directory. The tokenizer is synthetic: the byte-level base vocabulary of
+directory. For inference and eval, `write_vae_dir` writes a diffusers
+`vae/` (the decoder half of AutoencoderKL, SD's widths by default) and
+`write_clip_dir` a CLIP dual-encoder directory (`config.json` with
+`text_config`, `vision_config` and `projection_dim`, one `model.safetensors`,
+a synthetic tokenizer; ViT-L/14 with its 12-layer text tower by default).
+Both packages' loaders read these files. The tokenizer is synthetic: the byte-level base vocabulary of
 CLIP's BPE (512 entries), merges that make each given word one token, and
 `<|startoftext|>` 49406 and `<|endoftext|>` 49407, so every id is below
 49408 and any text tokenizes.
@@ -25,6 +30,7 @@ does), so that the limit is shown to catch such a fault.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import math
@@ -44,6 +50,7 @@ from leco_tpu_torch.lora import (
 )
 from leco_tpu_torch.models import convert
 from leco_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, sd2_text_config
+from leco_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
 from leco_tpu_torch.models.tokenizer import SPECIAL_TOKENS, _bytes_to_unicode
 from leco_tpu_torch.models.unet import (
     UNet2DConditionModel,
@@ -52,6 +59,7 @@ from leco_tpu_torch.models.unet import (
     sd21_config,
     tiny_unet_config,
 )
+from leco_tpu_torch.models.vae import VAEDecoder, VAEDecoderConfig
 from leco_tpu_torch.ops import conv, geglu, gn_conv
 from leco_tpu_torch.ops import group_norm as gn
 from leco_tpu_torch.ops.attention import default_backend
@@ -222,14 +230,25 @@ def random_clip_state(config: CLIPTextConfig, seed: int = 0,
                       device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
     """A random HF-keyed CLIP text-encoder state_dict on the CPU: N(0, 0.02)
     embeddings and weights, zero biases, LayerNorms at 1 + N(0, 0.1) / 0."""
+    return _random_transformer_state(_shapes(lambda: CLIPTextModel(config)), seed, dtype,
+                                     device)
+
+
+def _shapes(module_fn) -> dict[str, torch.Size]:
+    with torch.device("meta"):
+        return {k: v.shape for k, v in module_fn().state_dict().items()}
+
+
+def _random_transformer_state(shapes: dict, seed: int, dtype: torch.dtype,
+                              device) -> dict[str, torch.Tensor]:
+    """N(0, 0.02) embeddings and weights, zero biases, LayerNorms at
+    1 + N(0, 0.1) / 0, drawn in key order, on the CPU."""
     generator = torch.Generator(device)
     generator.manual_seed(seed)
-    with torch.device("meta"):
-        shapes = {k: v.shape for k, v in CLIPTextModel(config).state_dict().items()}
     state = {}
     for k, shape in shapes.items():
         draw = torch.randn(shape, generator=generator, device=device)
-        if "layer_norm" in k:
+        if "norm" in k.rsplit(".", 2)[-2]:
             v = 1 + 0.1 * draw if k.endswith("weight") else torch.zeros(shape, device=device)
         elif k.endswith("bias"):
             v = torch.zeros(shape, device=device)
@@ -301,4 +320,95 @@ def write_diffusers_checkpoint(
     write_safetensors(tdir / "model.safetensors",
                       random_clip_state(text_config, seed + 1, torch.float32))
     write_tokenizer(root / "tokenizer")
+    return root
+
+
+def random_vae_state(config: VAEDecoderConfig, seed: int = 0,
+                     dtype: torch.dtype = torch.float32,
+                     device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
+    """A random VAE-decoder state_dict (diffusers keys) on the CPU: LeCun
+    normal conv and linear weights, zero biases, GroupNorms at 1 + N(0, 0.1)
+    and N(0, 0.1)."""
+    generator = torch.Generator(device)
+    generator.manual_seed(seed)
+    state = {}
+    for k, shape in _shapes(lambda: VAEDecoder(config)).items():
+        draw = torch.randn(shape, generator=generator, device=device)
+        if "norm" in k.rsplit(".", 2)[-2]:
+            v = (1 if k.endswith("weight") else 0) + 0.1 * draw
+        elif k.endswith("bias"):
+            v = torch.zeros(shape, device=device)
+        else:
+            v = draw / math.sqrt(draw[0].numel())
+        state[k] = v.to(dtype).cpu()
+    return state
+
+
+def write_vae_dir(root: str | os.PathLike, config: Optional[VAEDecoderConfig] = None,
+                  seed: int = 0, dtype: torch.dtype = torch.float32,
+                  device: str | torch.device = "cpu", legacy_attention: bool = False) -> Path:
+    """`root/vae/`: a diffusers AutoencoderKL `config.json` and its decoder
+    half (`decoder.*`, `post_quant_conv.*`) with random weights, SD1/2's
+    widths by default. `legacy_attention` writes the mid-block attention
+    under the old names (query/key/value/proj_attn). -> the `vae/` dir."""
+    config = config or VAEDecoderConfig()
+    d = Path(root) / "vae"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "config.json").write_text(json.dumps({
+        "_class_name": "AutoencoderKL", "in_channels": 3,
+        **{f: getattr(config, f) for f in ("latent_channels", "out_channels",
+                                            "layers_per_block", "norm_num_groups",
+                                            "scaling_factor")},
+        "block_out_channels": list(config.block_out_channels),
+    }))
+    state = random_vae_state(config, seed, dtype, device)
+    if legacy_attention:
+        old = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
+        for new, name in old.items():
+            for leaf in ("weight", "bias"):
+                prefix = "decoder.mid_block.attentions.0"
+                state[f"{prefix}.{name}.{leaf}"] = state.pop(f"{prefix}.{new}.{leaf}")
+    write_safetensors(d / "diffusion_pytorch_model.safetensors", state)
+    return d
+
+
+def random_clip_vision_state(config: CLIPVisionConfig, seed: int = 0,
+                             dtype: torch.dtype = torch.float32,
+                             device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
+    """A random HF-keyed CLIP vision state_dict on the CPU: N(0, 0.02)
+    embeddings and weights, zero biases, LayerNorms at 1 + N(0, 0.1) / 0."""
+    return _random_transformer_state(_shapes(lambda: CLIPVisionModel(config)), seed, dtype,
+                                     device)
+
+
+def write_clip_dir(root: str | os.PathLike, text_config: Optional[CLIPTextConfig] = None,
+                   vision_config: Optional[CLIPVisionConfig] = None,
+                   projection_dim: int = 768, seed: int = 0,
+                   dtype: torch.dtype = torch.float32,
+                   device: str | torch.device = "cpu") -> Path:
+    """A CLIP dual-encoder directory with random weights (openai/clip-vit-
+    large-patch14's layout): `config.json` (`text_config`, `vision_config`,
+    `projection_dim`), `model.safetensors` (`text_model.*`,
+    `text_projection.weight`, `vision_model.*`, `visual_projection.weight`)
+    and a synthetic tokenizer. By default ViT-L/14 (24 x 1024) and the
+    12 x 768 text tower, projection 768."""
+    text_config = dataclasses.replace(text_config or CLIPTextConfig(),
+                                      projection_dim=projection_dim)
+    vision_config = dataclasses.replace(vision_config or CLIPVisionConfig(),
+                                        projection_dim=projection_dim)
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps({
+        "architectures": ["CLIPModel"], "projection_dim": projection_dim,
+        "text_config": {f: getattr(text_config, f) for f in (
+            "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+            "num_attention_heads", "max_position_embeddings", "hidden_act", "eos_token_id")},
+        "vision_config": {f: getattr(vision_config, f) for f in (
+            "hidden_size", "intermediate_size", "num_hidden_layers", "num_attention_heads",
+            "image_size", "patch_size", "hidden_act")},
+    }))
+    state = {**random_clip_state(text_config, seed, dtype, device),
+             **random_clip_vision_state(vision_config, seed + 1, dtype, device)}
+    write_safetensors(root / "model.safetensors", state)
+    write_tokenizer(root)
     return root

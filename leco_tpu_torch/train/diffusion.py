@@ -1,5 +1,5 @@
-"""Diffusion ops: latent init, embedding packing, CFG noise prediction, the
-partial-denoise sampler and resolution buckets.
+"""Diffusion ops: latent init, offset noise, embedding packing, CFG noise
+prediction, the partial-denoise sampler and resolution buckets.
 
 Counterpart of `leco_tpu/train/diffusion.py` (reference train_util.py).
 Latents are NCHW. Noise comes from an explicit `torch.Generator`; it cannot
@@ -31,6 +31,15 @@ def get_random_noise(generator: torch.Generator, batch_size: int, height: int,
          width // VAE_SCALE_FACTOR),
         generator=generator, device=device, dtype=torch.float32,
     )
+
+
+def apply_noise_offset(generator: torch.Generator, latents: torch.Tensor,
+                       noise_offset: float) -> torch.Tensor:
+    """Offset noise (train_util.py:36-40): a per-(batch, channel) DC shift
+    of `noise_offset` standard normals."""
+    shift = torch.randn((latents.shape[0], latents.shape[1], 1, 1), generator=generator,
+                        device=latents.device, dtype=latents.dtype)
+    return latents + noise_offset * shift
 
 
 def get_initial_latents(generator: torch.Generator, state: sched.SchedulerState,

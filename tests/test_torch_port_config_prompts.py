@@ -1,7 +1,7 @@
 """The port's config tree, prompt schema and ESD loss against the JAX
 package's, and a run of the port's main path and of its CLI with every
 package outside torch, numpy and einops blocked (a GPU deployment has no
-pydantic, yaml, safetensors, tqdm or regex)."""
+pydantic, yaml, safetensors, tqdm, regex or PIL)."""
 
 import os
 import subprocess
@@ -109,7 +109,7 @@ def test_esd_loss_matches_jax(action, sign, dtype):
 
 
 BLOCKED = ("jax", "flax", "optax", "orbax", "pydantic", "yaml", "safetensors", "tqdm", "regex",
-           "leco_tpu")
+           "PIL", "leco_tpu")
 
 MAIN_PATH_WITHOUT_EXTRAS = textwrap.dedent(
     """
@@ -156,6 +156,33 @@ MAIN_PATH_WITHOUT_EXTRAS = textwrap.dedent(
         r = main(parse_args(["--config_file", str(tmp / "config.yaml"), "--device", "cpu"]))
         assert len(r["losses"]) == 1 and (tmp / "out" / "t_last.safetensors").exists(), r
     print("CLI OK")
+
+    # inference and eval on tiny dirs: generate, decode, PNG, CLIP score
+    from leco_tpu_torch import infer
+    from leco_tpu_torch.eval import CLIPScorer
+    from leco_tpu_torch.lora import LoRASpec
+    from leco_tpu_torch.models.clip_vision import tiny_vision_config
+    from leco_tpu_torch.models.loader import load_models, load_vae_decoder
+    from leco_tpu_torch.models.vae import VAEDecoderConfig
+    text = CLIPTextConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                          num_attention_heads=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        testing.write_diffusers_checkpoint(tmp / "sd", tiny_unet_config(32), text)
+        testing.write_vae_dir(tmp / "sd", VAEDecoderConfig(
+            block_out_channels=(8, 8, 16, 16), layers_per_block=1, norm_num_groups=4))
+        testing.write_clip_dir(tmp / "clip", text, tiny_vision_config(), projection_dim=16)
+        models = load_models(str(tmp / "sd"), lora_spec=LoRASpec(rank=2), device="cpu")
+        latents = infer.generate_latents(models, "van gogh", "", infer.GenerationConfig(
+            height=64, width=64, num_inference_steps=2))
+        images = infer.decode_latents(models, latents, load_vae_decoder(str(tmp / "sd"),
+                                                                        device="cpu"))
+        assert images.shape == (1, 64, 64, 3), images.shape
+        assert infer.save_images(images, str(tmp / "img"))
+        score = CLIPScorer.from_pretrained(str(tmp / "clip"), device="cpu").score(
+            images, ["van gogh"])
+        assert score.shape == (1,), score
+    print("INFER OK")
     """
 ).format(blocked=BLOCKED)
 
@@ -168,3 +195,4 @@ def test_main_path_runs_with_torch_numpy_einops_only():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "MAIN PATH OK" in proc.stdout and "CLI OK" in proc.stdout
+    assert "INFER OK" in proc.stdout

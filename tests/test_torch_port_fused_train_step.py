@@ -69,11 +69,11 @@ def one_step(knobs, monkeypatch):
 
 def test_fused_train_step_matches_jax(one_step):
     """TIMESTEPS_TO + 2 forwards, each through the kernels' plain versions as
-    counted per forward above, plus the backward's conv dx for the two
-    kernel convs whose input needs a gradient, the upsampler and conv_out
-    (conv_in's input is the latents)."""
+    counted per forward above, plus the backward's conv dx for the one
+    kernel conv whose input needs a gradient, conv_out (conv_in's input is
+    the latents; the upsampler runs phase convolutions)."""
     forwards = TIMESTEPS_TO + 2
-    assert one_step["calls"] == {"conv3x3_gemm_plain": 3 * forwards + 2,
+    assert one_step["calls"] == {"conv3x3_gemm_plain": 2 * forwards + 1,
                                  "gnconv3x3_plain": 16 * forwards,
                                  "group_norm_silu_plain": 5 * forwards,
                                  "geglu_gemm_plain": 4 * forwards}
