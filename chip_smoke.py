@@ -95,7 +95,20 @@ Phases, each printing its result on a line of its own:
                and per image, decode and score ms beside the card's name and
                power limit; and the phase-conv upsampler (the port's and
                the JAX package's four-conv form) against materialise +
-               F.conv2d at SD1.5's three upsampler shapes.
+               F.conv2d at SD1.5's three upsampler shapes;
+ 12. xl      — SDXL at full width, cuDNN deterministic: a random SDXL single
+               file (fp16, 6.3 GiB, LDM keys checked against
+               tests/fixtures/ldm_unet_keys_sdxl.txt) written one tensor at
+               a time; examples/config_xl.yaml + prompts_xl.yaml (1024 px,
+               batch 1, bf16, rank-4 lierla, DDIM, AdamW) through
+               `train_lora_xl.main()`, 3 iterations with seed 0 (finite
+               losses, exact flash launches, the save read back); one
+               iteration each with dynamic_crops and with checkpoint_unet
+               (peak memory); one 1024 px forward: kernels vs plain
+               attention, the knobs on vs off (their launches at SDXL's
+               shapes), packed bitwise the 3-d route; the trained LoRA's A/B
+               at 1024 px, 20 DDIM steps, with exact launches, and a
+               full-width SDXL VAE decode to uint8 (1, 1024, 1024, 3).
 The knobs are the JAX package's: LECO_CONV_BACKEND=gemm, LECO_RESNET_FUSED=1,
 LECO_TPU_FUSED_GN=1, LECO_GEGLU=fused, and LECO_FLASH_PACKED=1. Then a JSON
 line with every kernel's launches, error, times (kernel, plain, library;
@@ -118,6 +131,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 REPO = Path(__file__).resolve().parent
 
@@ -146,6 +160,12 @@ KERNEL_SHAPES = [
     (10, 4096, 4096, 64),
     (40, 1024, 1024, 64),
     (80, 256, 256, 64),
+    # SDXL at 1024 px (10 and 20 heads of 64): the references' 3B at levels 1
+    # and 2, the target's B at level 2 (its inner 2B at both levels and its
+    # target at level 1 are SD2.1's (20, 4096), (40, 1024) and (10, 4096))
+    (30, 4096, 4096, 64),
+    (60, 1024, 1024, 64),
+    (20, 1024, 1024, 64),
 ]
 # (B, Nq, Nk, C, heads) of the packed kernel: SD2.1 at 512 px (levels 0-2,
 # heads 5 / 10 / 20, D 64) at the inner loop's B = 4 and the references'
@@ -157,6 +177,7 @@ PACKED_SHAPES = [
     (4, 256, 256, 1280, 20), (6, 256, 256, 1280, 20),
     (4, 4096, 4096, 320, 8),
     (4, 1024, 300, 640, 10),
+    (2, 4096, 4096, 640, 10), (2, 1024, 1024, 1280, 20),  # SDXL's inner 2B at 1024 px
 ]
 PACKED_TIMED = (4, 4096, 4096, 320, 5)  # SD2.1 level 0, the inner loop's batch
 # the level-0 shape at which each kernel runs most on the training path
@@ -184,8 +205,9 @@ DROPPED_QUERIES = 64
 ATOL_LSE = 1e-3
 RTOL_GRAD = 2e-2
 # where one SDPA backward is timed beside the dq and dkv kernels: SD1.5's and
-# SD2.1's level 0 at the target's batch
-BWD_LIBRARY_SHAPES = ((8, 4096, 4096, 40), (10, 4096, 4096, 64))
+# SD2.1's level 0 at the target's batch (SD2.1's is SDXL's level 1 at B = 1),
+# and SDXL's level 2 at B = 1
+BWD_LIBRARY_SHAPES = ((8, 4096, 4096, 40), (10, 4096, 4096, 64), (20, 1024, 1024, 64))
 # the whole UNet through the kernels vs through plain attention, bf16:
 # relative to the output's largest magnitude
 RTOL_UNET = 5e-2
@@ -235,7 +257,7 @@ SD15_RESNETS, SD15_UPSAMPLERS, SD15_TRANSFORMERS = 22, 3, 16
 
 def fused_launches(network: str, forwards: int, targets: int, resnets: int = SD15_RESNETS,
                    upsamplers: int = SD15_UPSAMPLERS,
-                   transformers: int = SD15_TRANSFORMERS) -> dict:
+                   transformers: int = SD15_TRANSFORMERS, blocks: Optional[int] = None) -> dict:
     """The fused kernels' launches in `forwards` UNet forwards with every
     knob on, `targets` of them the differentiated target pass with its
     backward. lierla: each resnet conv takes gnconv3x3 (its GroupNorm
@@ -246,13 +268,16 @@ def fused_launches(network: str, forwards: int, targets: int, resnets: int = SD1
     on the 2x upsample is materialised; folded and off passes run the
     phase convolutions); the backward runs conv3x3 for the dx of every
     conv3x3 of the target pass but the first resnet's conv1, whose input
-    (conv_in's output) needs no gradient."""
+    (conv_in's output) needs no gradient. `transformers` counts the
+    Transformer2DModels (one GroupNorm each), `blocks` their transformer
+    blocks (one GEGLU each; by default one a model, as in SD1.x/2.x)."""
+    blocks = transformers if blocks is None else blocks
     if network == "lierla":
         return {"gnconv3x3": 2 * resnets * forwards, "group_norm": (transformers + 1) * forwards,
-                "geglu": transformers * forwards, "conv3x3": 0}
+                "geglu": blocks * forwards, "conv3x3": 0}
     if network == "c3lier":
         return {"gnconv3x3": 0, "group_norm": (2 * resnets + transformers + 1) * forwards,
-                "geglu": transformers * forwards,
+                "geglu": blocks * forwards,
                 "conv3x3": 2 * resnets * forwards + (upsamplers + 2 * resnets - 1 + upsamplers)
                 * targets}
     raise ValueError(network)
@@ -346,6 +371,18 @@ COMPOSE_WEIGHT_SHARE = 0.01
 # upsample + F.conv2d, bf16, each held to the fp32 conv of the materialised
 # input within RTOL_FUSED
 UPSAMPLER_SHAPES = [(2, 1280, 8), (2, 1280, 16), (2, 640, 32)]
+# phase xl: examples/config_xl.yaml + prompts_xl.yaml (1024 px, batch 1) on a
+# random full-width SDXL single file, cut to XL_ITERATIONS iterations
+XL_CHECKPOINT = Path("sdxl") / "sdxl_random.safetensors"
+XL_ITERATIONS = 3
+XL_RESOLUTION = 1024
+# SDXL at 1024 px: self-attention over 4096 tokens (level 1: 2 x 2 down, 3 x 2
+# up) and 1024 (level 2: 2 x 10 down, 3 x 10 up, 10 in the mid block)
+XL_FLASH_PER_FORWARD = 70
+# SDXL's UNet: 17 resnets, 2 upsamplers, 11 Transformer2DModels of 70 blocks
+XL_RESNETS, XL_UPSAMPLERS, XL_TRANSFORMERS = 17, 2, 11
+XL_INFER_STEPS = 20
+XL_PROMPT = "van gogh"
 
 
 def wrappers() -> dict:
@@ -1241,21 +1278,25 @@ def unreal_config(ckpt: Path, save_dir: Path) -> dict:
     return config
 
 
-def run_cli(config: dict, config_path: Path, on_step=None) -> dict:
-    """`main()` of the port's CLI on `config` with every launch count at 0
-    before it -> {"result", "launches", "seconds", "stamps", "load_end",
-    "peak_mem_gb"}. `wandb` is made unimportable: `use_wandb: true` then
-    takes the JAX trainer's "not installed" path and nothing reaches a
-    network."""
+def run_cli(config: dict, config_path: Path, on_step=None, xl: bool = False) -> dict:
+    """`main()` of the port's CLI (`train_lora`, or with `xl` `train_lora_xl`)
+    on `config` with every launch count at 0 before it -> {"result",
+    "launches", "seconds", "stamps", "load_end", "peak_mem_gb"}. `wandb` is
+    made unimportable: `use_wandb: true` then takes the JAX trainer's "not
+    installed" path and nothing reaches a network."""
     import torch
 
     from leco_tpu_torch.models import loader
-    from leco_tpu_torch.train_lora import main as cli_main
     from leco_tpu_torch.train_lora import parse_args
 
+    if xl:
+        from leco_tpu_torch.train_lora_xl import main as cli_main
+    else:
+        from leco_tpu_torch.train_lora import main as cli_main
+    load_name = "load_models_xl" if xl else "load_models"
     write_config(config, config_path)
     stamps, load_end = [], []
-    real_load = loader.load_models
+    real_load = getattr(loader, load_name)
 
     def timed_load(*args, **kwargs):
         models = real_load(*args, **kwargs)
@@ -1270,7 +1311,7 @@ def run_cli(config: dict, config_path: Path, on_step=None) -> dict:
 
     saved_wandb = sys.modules.get("wandb", "absent")
     sys.modules["wandb"] = None
-    loader.load_models = timed_load
+    setattr(loader, load_name, timed_load)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1280,7 +1321,7 @@ def run_cli(config: dict, config_path: Path, on_step=None) -> dict:
     try:
         out["result"] = cli_main(parse_args(["--config_file", str(config_path)]), on_step=hook)
     finally:
-        loader.load_models = real_load
+        setattr(loader, load_name, real_load)
         if saved_wandb == "absent":
             del sys.modules["wandb"]
         else:
@@ -1433,9 +1474,7 @@ def phase_recipes(device, ckpt: Path, out_dir: Path) -> dict:
         spec = LoRASpec(rank=16, alpha=1.0, network_type="lierla")
         models = loader.load_models(str(ckpt), v2=True, v_pred=True, weight_dtype=torch.bfloat16,
                                     lora_spec=spec, attn_backend="flash", device=device)
-        bundle = trainer.ModelBundle(
-            unet=models.unet, scheduler=models.scheduler, spec=spec, device=device,
-            encode_fn=trainer.make_encode_fn(models.tokenizer, models.text_encoder, device))
+        bundle = trainer.ModelBundle.from_loaded(models, spec, device)
         pack = trainer.build_pack(trainer.encode_prompt_pairs(
             [PromptSettings.from_dict({"target": "realistic", "resolution": CKPT_RESOLUTION})],
             bundle.encode_fn)[0])
@@ -1873,6 +1912,241 @@ def phase_infer(device, ckpt: Path, out_dir: Path) -> dict:
     return {**out, "nvidia_smi": smi}
 
 
+def phase_xl(device, out_dir: Path) -> dict:
+    """SDXL at full width (random weights from seed 0), cuDNN deterministic:
+    1. a random SDXL single file (fp16, 2.57B UNet + CLIP-L + bigG) written
+       tensor by tensor, its UNet's LDM keys checked against
+       tests/fixtures/ldm_unet_keys_sdxl.txt;
+    2. examples/config_xl.yaml + examples/prompts_xl.yaml (1024 px, batch 1,
+       bf16, rank-4 lierla, DDIM, AdamW, the flash kernels) through
+       `train_lora_xl.main()`, XL_ITERATIONS iterations with seed 0: finite
+       losses, exact flash launches, the saved file read back equal;
+    3. one more iteration with dynamic_crops and one with checkpoint_unet,
+       through train() on a second load of the file, with peak memory;
+    4. one 1024 px bf16 UNet forward at the inner batch 2: the kernels
+       against plain attention, the fused knobs on against off (with their
+       launches), the packed route bitwise the 3-d route;
+    5. the trained LoRA through `ab_compare` at 1024 px, XL_INFER_STEPS
+       DDIM steps, guidance 7, exact launches; a full-width SDXL VAE decode
+       (scaling factor 0.13025) to uint8 (1, 1024, 1024, 3)."""
+    import numpy as np
+    import torch
+
+    from leco_tpu_torch import infer, testing
+    from leco_tpu_torch.config import RootConfig
+    from leco_tpu_torch.lora import (
+        LoRASpec,
+        count_lora_modules,
+        load_lora_weights,
+        lora_parameters,
+        read_safetensors,
+    )
+    from leco_tpu_torch.models import loader
+    from leco_tpu_torch.models.vae import sdxl_vae_config
+    from leco_tpu_torch.prompts import load_prompts_from_yaml
+    from leco_tpu_torch.train import diffusion as diff
+    from leco_tpu_torch.train.trainer import ModelBundle, train
+    from leco_tpu_torch.utils import yaml_subset
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t
+
+    saved_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        # ---- 1. the file
+        ckpt, write_s = synced(lambda: testing.write_sdxl_single_file(
+            out_dir / XL_CHECKPOINT, seed=0, dtype=torch.float16, device=device))
+        shapes = safetensors_shapes(ckpt)
+        unet_keys = {k: v for k, v in shapes.items() if k.startswith("model.diffusion_model.")}
+        fixture = {}
+        for line in (REPO / "tests" / "fixtures" / "ldm_unet_keys_sdxl.txt").read_text() \
+                .splitlines():
+            key, shape = line.split()
+            fixture[key] = tuple(int(x) for x in shape.split(","))
+        check(unet_keys == fixture, "the written UNet's LDM keys and shapes are not SDXL's: "
+              f"{sorted(set(unet_keys) ^ set(fixture))[:5]}")
+        check(sum(k.startswith("conditioner.embedders.1.model.transformer.resblocks.")
+                  and k.endswith(".ln_1.weight") for k in shapes) == 32, "bigG resblocks")
+        gib = ckpt.stat().st_size / 2**30
+        print(f"xl checkpoint: {gib:.2f} GiB, {len(shapes)} tensors, written in "
+              f"{write_s:.1f} s", flush=True)
+        out["file"] = {"gib": gib, "tensors": len(shapes), "write_seconds": write_s}
+
+        # ---- 2. the recipe through the CLI
+        config = yaml_subset.load(REPO / "examples" / "config_xl.yaml")
+        config["prompts_file"] = str(REPO / "examples" / "prompts_xl.yaml")
+        config["pretrained_model"]["name_or_path"] = str(ckpt)
+        config["train"].update(iterations=XL_ITERATIONS, seed=0)
+        save_dir = out_dir / "xl_out"
+        config["save"]["path"] = str(save_dir)
+        run = run_cli(config, out_dir / "config_xl.yaml", xl=True)
+        result, counts = run["result"], run["launches"]
+        losses = result["losses"]
+        check(len(losses) == XL_ITERATIONS and all(math.isfinite(v) for v in losses),
+              f"xl losses {losses}")
+        records = [json.loads(ln) for ln in (save_dir / "metrics.jsonl").read_text().splitlines()]
+        tsto = [r["timesteps_to"] for r in records]
+        check(all(r["resolution"] == [XL_RESOLUTION] * 2 for r in records), "xl resolution")
+        want = flash_launches(sum(t + 2 for t in tsto), XL_ITERATIONS, XL_FLASH_PER_FORWARD)
+        check(counts == want, f"xl launches {counts} != {want}")
+        name = config["save"]["name"]
+        state, metadata = read_safetensors(save_dir / f"{name}_last.safetensors")
+        n_layers = count_lora_modules(result["lora"])
+        check(len(state) == 3 * n_layers, f"xl: {len(state)} tensors, {n_layers} layers")
+        for k, v in result["lora"].items():
+            layer, part = k.rsplit(".", 1)
+            key = "lora_unet_" + layer.replace(".", "_") + f".{part}.weight"
+            check(torch.equal(state[key], v.to(torch.bfloat16)), f"xl: saved {key} differs")
+        per_iter = iteration_seconds(run)
+        print(f"xl cli: seconds per iteration {json.dumps(per_iter)} (timesteps_to {tsto}), "
+              f"load {run['load_end'][0] - run['t0']:.1f} s, peak {run['peak_mem_gb']:.2f} GiB",
+              flush=True)
+        out["cli"] = {"losses": losses, "timesteps_to": tsto, "launches": counts,
+                      "load_seconds": run["load_end"][0] - run["t0"],
+                      "seconds_per_iteration": per_iter, "peak_mem_gb": run["peak_mem_gb"],
+                      "lora_layers": n_layers}
+        del run, result, state
+
+        # ---- 3. dynamic_crops and checkpoint_unet, one iteration each
+        net = config["network"]
+        spec = LoRASpec(rank=net["rank"], alpha=net["alpha"], network_type=net["type"],
+                        train_method=net["training_method"])
+        models, load_s = synced(lambda: loader.load_models_xl(
+            str(ckpt), weight_dtype=torch.bfloat16, lora_spec=spec, attn_backend="flash",
+            device=device, checkpoint_unet=False))
+        prompts = load_prompts_from_yaml(REPO / "examples" / "prompts_xl.yaml")
+        for variant in ("dynamic_crops", "checkpoint_unet"):
+            one = {**config, "train": {**config["train"], "iterations": 1,
+                                       "checkpoint_unet": variant == "checkpoint_unet"},
+                   "save": {**config["save"], "path": str(out_dir / f"xl_{variant}")}}
+            settings = [dataclasses.replace(p, dynamic_crops=variant == "dynamic_crops")
+                        for p in prompts]
+            bundle = ModelBundle.from_loaded(models, spec, device)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            extra, seconds = synced(lambda: train(RootConfig.from_dict(one), settings, bundle))
+            models.unet.checkpoint_unet = False
+            rec = json.loads((out_dir / f"xl_{variant}" / "metrics.jsonl").read_text()
+                             .splitlines()[0])
+            counts = launches()
+            forwards = rec["timesteps_to"] + 2 + (variant == "checkpoint_unet")
+            want = flash_launches(forwards, 1, XL_FLASH_PER_FORWARD)
+            check(counts == want, f"xl {variant} launches {counts} != {want}")
+            check(all(math.isfinite(v) for v in extra["losses"]), f"xl {variant} loss")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"xl {variant}: {seconds:.2f} s (timesteps_to {rec['timesteps_to']}), "
+                  f"peak {peak:.2f} GiB", flush=True)
+            out[variant] = {"loss": extra["losses"][0], "timesteps_to": rec["timesteps_to"],
+                            "seconds": seconds, "peak_mem_gb": peak, "launches": counts}
+            del bundle, extra
+
+        # ---- 4. one full-width forward, three pairs
+        gen = torch.Generator(device)
+        gen.manual_seed(5)
+        lat = XL_RESOLUTION // 8
+        unet = models.unet
+        x = torch.randn((2, 4, lat, lat), generator=gen, device=device)
+        ctx = torch.randn((2, 77, unet.cfg.cross_attention_dim), generator=gen, device=device)
+        time_ids = torch.from_numpy(diff.get_add_time_ids(XL_RESOLUTION, XL_RESOLUTION))
+        added = {"text_embeds": torch.randn((2, testing.xl_pooled_dim(unet.cfg)),
+                                            generator=gen, device=device),
+                 "time_ids": time_ids.to(device).repeat(2, 1)}
+        forward = {}
+        with torch.no_grad():
+            reset_launches()
+            flash_out = unet(x, 501.0, ctx, added).float()
+            torch.cuda.synchronize()
+            flash_counts = launches()
+            unet.set_attention_backend("xla")
+            plain_out = unet(x, 501.0, ctx, added).float()
+            unet.set_attention_backend("flash")
+            with fused_knobs(True):
+                reset_launches()
+                fused_out = unet(x, 501.0, ctx, added).float()
+                torch.cuda.synchronize()
+                fused_counts = launches()
+            with environ({"LECO_FLASH_PACKED": "1"}):
+                reset_launches()
+                packed_out = unet(x, 501.0, ctx, added).float()
+                torch.cuda.synchronize()
+                packed_counts = launches()
+        size = plain_out.abs().max().item()
+        for what, got, ref in (("flash vs plain", flash_out, plain_out),
+                               ("knobs on vs off", fused_out, flash_out)):
+            check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (2, 4, lat, lat),
+                  f"xl forward {what}: shape {tuple(got.shape)}")
+            err = (got - ref).abs().max().item()
+            check(err <= RTOL_UNET * ref.abs().max().item(),
+                  f"xl forward {what}: {err} > {RTOL_UNET} x {ref.abs().max().item()}")
+            forward[what] = {"max_abs_err": err, "max_abs_ref": ref.abs().max().item()}
+        check(torch.equal(packed_out, flash_out), "xl packed forward is not bitwise the 3-d one")
+        check(flash_counts == flash_launches(1, 0, XL_FLASH_PER_FORWARD),
+              f"xl forward launches {flash_counts}")
+        want = {**flash_launches(1, 0, XL_FLASH_PER_FORWARD),
+                **fused_launches("lierla", 1, 0, XL_RESNETS, XL_UPSAMPLERS, XL_TRANSFORMERS,
+                                 XL_FLASH_PER_FORWARD)}
+        check(fused_counts == want, f"xl knobs-on launches {fused_counts} != {want}")
+        want = {**{n: 0 for n in KERNELS}, PACKED: XL_FLASH_PER_FORWARD}
+        check(packed_counts == want, f"xl packed launches {packed_counts} != {want}")
+        out["forward"] = {**forward, "plain_max_abs": size, "fused_launches": fused_counts,
+                          "packed_bitwise": True}
+        del x, ctx, added, flash_out, plain_out, fused_out, packed_out
+
+        # ---- 5. generation with the trained LoRA, and the VAE decode
+        lora = load_lora_weights(save_dir / f"{name}_last.safetensors",
+                                 lora_parameters(models.unet), spec)
+        gen_cfg = infer.GenerationConfig(height=XL_RESOLUTION, width=XL_RESOLUTION,
+                                         num_inference_steps=XL_INFER_STEPS, guidance_scale=7.0,
+                                         seed=0)
+        reset_launches()
+        grid, ab_s = synced(lambda: infer.ab_compare(models, lora, XL_PROMPT,
+                                                     multipliers=INFER_MULTIPLIERS, gen=gen_cfg))
+        counts = launches()
+        want = flash_launches(len(INFER_MULTIPLIERS) * XL_INFER_STEPS, 0, XL_FLASH_PER_FORWARD)
+        check(counts == want, f"xl A/B launches {counts} != {want}")
+        for m, lat_m in grid.items():
+            check(tuple(lat_m.shape) == (1, 4, lat, lat) and bool(torch.isfinite(lat_m).all()),
+                  f"xl latents at {m}")
+        moved = {m: (grid[m] - grid[0.0]).abs().max().item() for m in (-1.0, 1.0)}
+        check(all(v > 0 for v in moved.values()), f"xl -1 / +1 equal to 0: {moved}")
+        per_image = ab_s / len(INFER_MULTIPLIERS)
+        vae_dir, vae_write_s = synced(lambda: testing.write_vae_dir(
+            out_dir / "sdxl_vae_model", sdxl_vae_config(), seed=0, device=device))
+        vae = loader.load_vae_decoder(str(out_dir / "sdxl_vae_model"), torch.float32, device)
+        check(vae.config.scaling_factor == 0.13025, "SDXL VAE scaling factor")
+        decodes = []
+        for _ in range(3):
+            images, t = synced(lambda: infer.decode_latents(models, grid[1.0], vae))
+            decodes.append(t)
+        check(images.dtype == np.uint8 and images.shape == (1, XL_RESOLUTION, XL_RESOLUTION, 3),
+              f"xl decoded {images.dtype} {images.shape}")
+        check(len(np.unique(images)) > 16, "the decoded XL image is flat")
+        out["infer"] = {"launches": counts, "seconds": ab_s, "seconds_per_image": per_image,
+                        "seconds_per_ddim_step": per_image / XL_INFER_STEPS,
+                        "load_seconds": load_s, "max_abs_moved_from_0": moved,
+                        "vae_decode_ms": statistics.median(decodes) * 1e3}
+        del models, vae, lora, grid
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = saved_deterministic
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"xl ({smi}): {out['infer']['seconds_per_ddim_step']:.4f} s per DDIM step, "
+          f"{out['infer']['seconds_per_image']:.3f} s per image ({XL_RESOLUTION} px, "
+          f"{XL_INFER_STEPS} steps, CFG batch 2), VAE decode "
+          f"{out['infer']['vae_decode_ms']:.1f} ms", flush=True)
+    return {**out, "nvidia_smi": smi}
+
+
 def main() -> None:
     import torch
 
@@ -1926,6 +2200,9 @@ def main() -> None:
         phase("cli", cli)
         phase("recipes", phase_recipes(device, Path(tmp) / SD21_CHECKPOINT, Path(tmp)))
         phase("infer", phase_infer(device, Path(tmp) / SD21_CHECKPOINT, Path(tmp)))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("xl", phase_xl(device, Path(tmp)))
 
     # each kernel's launches come from the run of the path it is on: the
     # flash kernels from the default path, the fused ones from the knobs-on

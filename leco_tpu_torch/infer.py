@@ -1,7 +1,10 @@
 """Inference: text-to-image with an optional LoRA, the A/B grid, decoding.
 
 Counterpart of `leco_tpu/infer.py` (the reference's test/infer_xl.py and the
-notebook's before/after A/B, train.ipynb cells 11-12), SD1.x/2.x. A LoRA
+notebook's before/after A/B, train.ipynb cells 11-12), SD1.x/2.x and SDXL.
+SDXL encodes with both towers (`hidden_states[-2]` of each, concatenated;
+the pooled embedding of the second) and conditions every UNet call on the
+pooled (uncond, cond) pair and the `time_ids` of (height, width). A LoRA
 enters at the AddNet weight `multiplier` by scaling its `lora_up` leaves
 (exact: the contribution is linear in them), as in the reference README's
 X/Y/Z AddNet-weight grid. How a call runs the UNet's LoRA layers
@@ -40,6 +43,7 @@ from leco_tpu_torch.lora import (
 )
 from leco_tpu_torch.models.loader import LoadedModels
 from leco_tpu_torch.ops import schedulers as sched
+from leco_tpu_torch.prompts import prompt_encoder
 from leco_tpu_torch.train import diffusion as diff
 
 
@@ -99,24 +103,25 @@ def applied_lora(unet: torch.nn.Module, lora=None, multiplier: float = 1.0,
 
 def denoise(unet, state: sched.SchedulerState, latents: torch.Tensor,
             text_embeddings: torch.Tensor, guidance_scale: float,
-            noise=None) -> torch.Tensor:
+            noise=None, added_cond_kwargs: Optional[dict] = None) -> torch.Tensor:
     """Every step of `state`'s schedule from `latents` at CFG
     `guidance_scale` over the packed (uncond, cond) `text_embeddings` (the
     JAX package's runner, `_get_runner`'s `run`). `noise(i)` is step i's
-    standard normal, for the stochastic schedulers."""
+    standard normal, for the stochastic schedulers; `added_cond_kwargs`
+    SDXL's conditioning of the packed batch."""
     return diff.diffusion(unet, state, latents, text_embeddings, state.num_inference_steps,
-                          guidance_scale=guidance_scale, noise=noise)
+                          guidance_scale=guidance_scale, noise=noise,
+                          added_cond_kwargs=added_cond_kwargs)
 
 
 def _device(models: LoadedModels) -> torch.device:
     return next(models.unet.parameters()).device
 
 
-@torch.no_grad()
-def _encode(models: LoadedModels, prompt: str) -> torch.Tensor:
-    ids = torch.from_numpy(models.tokenizer([prompt]).astype("int64")).to(_device(models))
-    last, _, _ = models.text_encoder(ids)
-    return last
+def _encode(models: LoadedModels, prompt: str):
+    """(1, 77, d) for SD1.x/2.x; PromptEmbedsXL for SDXL: the CLIs' prompt
+    encoders (`prompts.prompt_encoder`)."""
+    return prompt_encoder(models, _device(models))(prompt)
 
 
 def _generators(seed: int, device) -> list[torch.Generator]:
@@ -148,18 +153,23 @@ def generate_latents(
     (tree, multiplier) pairs, the multi-AddNet composition, which needs
     `spec`. `positive_embeds` (1, 77, d) replaces the positive prompt's
     encoding (how a textual-inversion embedding enters inference)."""
-    is_xl = models.unet_config.addition_embed_type is not None
-    if positive_embeds is not None and is_xl:
+    if positive_embeds is not None and models.is_xl:
         raise ValueError("positive_embeds targets SD1.x/2.x inference")
-    if is_xl:
-        raise NotImplementedError("SDXL inference is not ported yet (ROADMAP.md)")
     device = _device(models)
     state = models.scheduler.set_timesteps(gen.num_inference_steps)
     pos = _encode(models, prompt)
     neg = _encode(models, negative_prompt)
-    if positive_embeds is not None:
-        pos = torch.as_tensor(positive_embeds, device=device).to(pos.dtype)
-    text_embeddings = torch.cat([neg, pos], dim=0)  # (uncond, cond) for CFG
+    added = None
+    if models.is_xl:
+        # (uncond, cond) order for CFG chunking (train_util.py:133-138)
+        text_embeddings = torch.cat([neg.text_embeds, pos.text_embeds], dim=0)
+        time_ids = torch.from_numpy(diff.get_add_time_ids(gen.height, gen.width)).to(device)
+        added = {"text_embeds": torch.cat([neg.pooled_embeds, pos.pooled_embeds], dim=0),
+                 "time_ids": time_ids.repeat(2, 1)}
+    else:
+        if positive_embeds is not None:
+            pos = torch.as_tensor(positive_embeds, device=device).to(pos.dtype)
+        text_embeddings = torch.cat([neg, pos], dim=0)  # (uncond, cond) for CFG
 
     g_lat, g_off, g_sched = _generators(gen.seed, device)
     latents = diff.get_initial_latents(g_lat, state, 1, gen.height, gen.width, device)
@@ -171,7 +181,8 @@ def generate_latents(
             return torch.randn(latents.shape, generator=g_sched, device=device,
                                dtype=torch.float32)
     with applied_lora(models.unet, lora, multiplier, spec):
-        return denoise(models.unet, state, latents, text_embeddings, gen.guidance_scale, noise)
+        return denoise(models.unet, state, latents, text_embeddings, gen.guidance_scale, noise,
+                       added)
 
 
 @torch.no_grad()

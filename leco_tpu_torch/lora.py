@@ -51,7 +51,7 @@ import math
 import mmap
 import os
 import re
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -484,10 +484,13 @@ _ST_FROM_NAME = {v: k for k, v in _ST_DTYPES.items()}
 
 
 def write_safetensors(path: str | os.PathLike, tensors: dict[str, torch.Tensor],
-                      metadata: Optional[dict[str, str]] = None) -> None:
+                      metadata: Optional[dict[str, str]] = None,
+                      fill: Optional[Callable[[str], torch.Tensor]] = None) -> None:
     """The safetensors format: u64-LE header length, JSON header (padded with
     spaces to 8 bytes), then each tensor's raw little-endian bytes, written
-    one tensor at a time."""
+    one tensor at a time. With `fill`, `tensors` gives only each tensor's
+    shape and dtype (meta tensors will do) and `fill(name)` makes its data
+    as it is written, so no more than one tensor is held at a time."""
     header: dict = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
@@ -505,7 +508,11 @@ def write_safetensors(path: str | os.PathLike, tensors: dict[str, torch.Tensor],
     with open(path, "wb") as f:
         f.write(len(raw).to_bytes(8, "little"))
         f.write(raw)
-        for t in tensors.values():
+        for name, t in tensors.items():
+            if fill is not None:
+                t = fill(name)
+                if t.dtype != tensors[name].dtype or t.shape != tensors[name].shape:
+                    raise ValueError(f"fill({name!r}) gave {t.dtype} {tuple(t.shape)}")
             t = t.detach().to("cpu").contiguous()
             f.write(t.reshape(-1).view(torch.uint8).numpy().data)
 

@@ -19,7 +19,8 @@ as it is. The numerics follow the JAX package:
     `text_projection` where the config has one.
 
 The SD2 tower is the reference's clip-skip arithmetic expressed as a layer
-count: 23 of OpenCLIP's 24 layers, then the final LayerNorm.
+count: 23 of OpenCLIP's 24 layers, then the final LayerNorm. SDXL's second
+tower (`sdxl_text2_config`) is bigG with its projection.
 """
 
 from __future__ import annotations
@@ -40,8 +41,8 @@ class CLIPTextConfig:
     num_hidden_layers: int = 12
     num_attention_heads: int = 12
     max_position_embeddings: int = 77
-    hidden_act: str = "quick_gelu"  # "quick_gelu" (SD1) or "gelu" (SD2)
-    projection_dim: Optional[int] = None
+    hidden_act: str = "quick_gelu"  # "quick_gelu" (SD1) or "gelu" (SD2, SDXL's bigG)
+    projection_dim: Optional[int] = None  # set for SDXL's text_encoder_2
     eos_token_id: int = 49407
 
 
@@ -57,6 +58,21 @@ def sd2_text_config(num_hidden_layers: int = 23) -> CLIPTextConfig:
         num_hidden_layers=num_hidden_layers,
         num_attention_heads=16,
         hidden_act="gelu",
+    )
+
+
+def sdxl_text2_config() -> CLIPTextConfig:
+    """SDXL's text_encoder_2: OpenCLIP ViT-bigG's text tower, all 32 layers,
+    with its 1280-wide projection (the pooled embedding). SDXL's sequence
+    embedding is `hidden_states[-2]`, the output of layer 31 before the
+    final LayerNorm."""
+    return CLIPTextConfig(
+        hidden_size=1280,
+        intermediate_size=5120,
+        num_hidden_layers=32,
+        num_attention_heads=20,
+        hidden_act="gelu",
+        projection_dim=1280,
     )
 
 

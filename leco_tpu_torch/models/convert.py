@@ -12,10 +12,15 @@ flax layout step has no counterpart here.
 
   * `ldm_unet_to_diffusers`: `model.diffusion_model.*` -> diffusers UNet
     keys (SD1.x/2.x; levels and attention presence read off the keys);
-  * `ldm_clip_to_hf`: SD1's embedded HF CLIP (`cond_stage_model.transformer.*`);
-  * `ldm_openclip_to_hf`: SD2's OpenCLIP tower (`cond_stage_model.model.*`),
-    with each fused `in_proj` split into q, k and v. All 24 resblocks come
-    out; the loader keeps the first `num_hidden_layers` (23 for SD2).
+  * `ldm_clip_to_hf`: SD1's embedded HF CLIP (`cond_stage_model.transformer.*`;
+    SDXL's CLIP-L under `conditioner.embedders.0.transformer.*`);
+  * `ldm_openclip_to_hf`: SD2's OpenCLIP tower (`cond_stage_model.model.*`;
+    SDXL's bigG under `conditioner.embedders.1.model.*`), with each fused
+    `in_proj` split into q, k and v. All resblocks come out; the loader
+    keeps the first `num_hidden_layers` (23 for SD2, all 32 for bigG).
+
+SDXL's UNet (3 levels, `label_emb.0.{0,2}` for the added embedding) takes
+the same UNet remap: the level count is read off the keys.
 
 `diffusers_unet_to_ldm` and `hf_clip_to_openclip` are their inverses, for
 writing a single-file checkpoint (`leco_tpu_torch.testing`).
@@ -105,6 +110,8 @@ UNET_PREFIX = "model.diffusion_model."
 LAYERS_PER_BLOCK = 2  # every SD1.x/2.x UNet
 CLIP_PREFIX = "cond_stage_model.transformer."
 OPENCLIP_PREFIX = "cond_stage_model.model."
+XL_CLIP_PREFIX = "conditioner.embedders.0.transformer."
+XL_OPENCLIP_PREFIX = "conditioner.embedders.1.model."
 
 _LDM_FIXED = {
     "time_embed.0.weight": "time_embedding.linear_1.weight",
@@ -249,9 +256,11 @@ def diffusers_unet_to_ldm(state_dict: Mapping[str, torch.Tensor]) -> dict[str, t
     return out
 
 
-def ldm_clip_to_hf(state_dict: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """SD1's LDM-embedded HF CLIP text encoder -> bare HF CLIP keys."""
-    return {k[len(CLIP_PREFIX):]: v for k, v in state_dict.items() if k.startswith(CLIP_PREFIX)}
+def ldm_clip_to_hf(state_dict: Mapping[str, torch.Tensor],
+                   prefix: str = CLIP_PREFIX) -> dict[str, torch.Tensor]:
+    """An LDM-embedded HF CLIP text encoder -> bare HF CLIP keys: SD1's
+    under `CLIP_PREFIX`, SDXL's CLIP-L under `XL_CLIP_PREFIX`."""
+    return {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
 
 
 _OPENCLIP_LAYER = {  # resblock submodule -> HF encoder-layer submodule
@@ -261,12 +270,13 @@ _OPENCLIP_LAYER = {  # resblock submodule -> HF encoder-layer submodule
 _QKV = ("q_proj", "k_proj", "v_proj")
 
 
-def ldm_openclip_to_hf(state_dict: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """OpenCLIP text tower -> HF CLIP keys, each fused `in_proj` split into
+def ldm_openclip_to_hf(state_dict: Mapping[str, torch.Tensor],
+                       prefix: str = OPENCLIP_PREFIX) -> dict[str, torch.Tensor]:
+    """OpenCLIP text tower (SD2's under `OPENCLIP_PREFIX`, SDXL's bigG under
+    `XL_OPENCLIP_PREFIX`) -> HF CLIP keys, each fused `in_proj` split into
     q, k and v (a third of its rows each: the tower's width, which the JAX
     package passes as `hidden_size`)."""
-    sd = {k[len(OPENCLIP_PREFIX):]: v for k, v in state_dict.items()
-          if k.startswith(OPENCLIP_PREFIX)}
+    sd = {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
     if not sd:
         return {}
     hidden_size = sd["transformer.resblocks.0.attn.in_proj_weight"].shape[0] // 3
@@ -291,9 +301,10 @@ def ldm_openclip_to_hf(state_dict: Mapping[str, torch.Tensor]) -> dict[str, torc
     return out
 
 
-def hf_clip_to_openclip(state_dict: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+def hf_clip_to_openclip(state_dict: Mapping[str, torch.Tensor],
+                        prefix: str = OPENCLIP_PREFIX) -> dict[str, torch.Tensor]:
     """The inverse of `ldm_openclip_to_hf`: HF CLIP keys -> the OpenCLIP
-    tower of an SD2 single file."""
+    tower of a single file, under `prefix`."""
     sd = dict(state_dict)
     out = {
         "token_embedding.weight": sd.pop("text_model.embeddings.token_embedding.weight"),
@@ -314,7 +325,7 @@ def hf_clip_to_openclip(state_dict: Mapping[str, torch.Tensor]) -> dict[str, tor
         i += 1
     if sd:
         raise ValueError(f"keys with no OpenCLIP counterpart: {sorted(sd)[:10]}")
-    return {OPENCLIP_PREFIX + k: v for k, v in out.items()}
+    return {prefix + k: v for k, v in out.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Checkpoint loading: diffusers directories and LDM single files.
 
 Counterpart of `leco_tpu/models/loader.py` (the reference's
-model_util.load_models, model_util.py:104-129), SD1.x/2.x. Offline: every
-tensor and the tokenizer come from the local path.
+model_util.load_models, model_util.py:104-129, and load_models_xl,
+model_util.py:179-227). Offline: every tensor and the tokenizers come from
+the local path.
 
   * diffusers directory: `unet/config.json` + weights, `text_encoder/`
     likewise, `tokenizer/vocab.json` + `merges.txt`; weights in
@@ -11,6 +12,11 @@ tensor and the tokenizer come from the local path.
   * LDM single file (`.safetensors` or `.ckpt`): keys remapped by
     `models/convert.py`, the UNet config fixed by the `v2` flag and checked
     against the tensors, and a `tokenizer/` directory beside the file;
+  * SDXL (`load_models_xl`): a diffusers directory with `text_encoder_2/`
+    and `tokenizer_2/` (pad id 0), or an SDXL single file (CLIP-L under
+    `conditioner.embedders.0.transformer.*`, bigG under
+    `conditioner.embedders.1.model.*`) with `tokenizer/` and
+    `tokenizer_2/` beside it; the SD1/2 loader refuses an SDXL file;
   * the VAE decoder (`load_vae_decoder`): a diffusers dir's `vae/`, or a
     standalone VAE dir, for inference.
 
@@ -38,6 +44,7 @@ from leco_tpu_torch.models.clip import (
     CLIPTextModel,
     sd1_text_config,
     sd2_text_config,
+    sdxl_text2_config,
 )
 from leco_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
 from leco_tpu_torch.models.tokenizer import CLIPTokenizer
@@ -46,6 +53,7 @@ from leco_tpu_torch.models.unet import (
     UNetConfig,
     sd15_config,
     sd21_config,
+    sdxl_config,
 )
 from leco_tpu_torch.models.vae import GroupNorm as VAEGroupNorm
 from leco_tpu_torch.models.vae import VAEDecoder, VAEDecoderConfig
@@ -119,6 +127,9 @@ def unet_config_from_json(config: dict) -> UNetConfig:
         use_linear_projection=config.get("use_linear_projection", False),
         upcast_attention=config.get("upcast_attention", False) or False,
         addition_embed_type=config.get("addition_embed_type"),
+        addition_time_embed_dim=config.get("addition_time_embed_dim") or 256,
+        projection_class_embeddings_input_dim=(
+            config.get("projection_class_embeddings_input_dim") or 2816),
         norm_num_groups=config.get("norm_num_groups", 32),
     )
 
@@ -159,14 +170,21 @@ def clip_config_from_json(config: dict, clip_skip: Optional[int] = None) -> CLIP
 
 @dataclasses.dataclass
 class LoadedModels:
-    """What `load_models` returns (the reference's (tokenizer, text_encoder,
-    unet, scheduler) tuple), every module on its device."""
+    """What `load_models` / `load_models_xl` return (the reference's
+    (tokenizer, text_encoder, unet, scheduler) tuple, and SDXL's second
+    tokenizer and text encoder), every module on its device."""
 
     tokenizer: CLIPTokenizer
     text_encoder: CLIPTextModel
     unet: UNet2DConditionModel  # with its LoRA branches
     scheduler: NoiseScheduler
     unet_config: UNetConfig
+    tokenizer_2: Optional[CLIPTokenizer] = None  # SDXL
+    text_encoder_2: Optional[CLIPTextModel] = None  # SDXL: bigG with its projection
+
+    @property
+    def is_xl(self) -> bool:
+        return self.unet.is_xl
 
 
 def _assign(module: torch.nn.Module, sd: dict, dtypes: dict, device, what: str) -> None:
@@ -297,8 +315,8 @@ def _load_single_file(path, scheduler_name, v2, v_pred, weight_dtype, clip_skip,
     sd = load_tensor_file(path)
     if any(k.startswith("conditioner.embedders.1.") for k in sd):
         raise ValueError(
-            f"{path} is an SDXL single-file checkpoint; the port has no SDXL "
-            "loader yet (ROADMAP.md), and the SD1/2 loader does not take it.")
+            f"{path} is an SDXL single-file checkpoint; use load_models_xl "
+            "(train_lora_xl) instead of the SD1/2 loader.")
 
     unet_sd = convert.ldm_unet_to_diffusers(sd)
     cross_dim = unet_sd["down_blocks.0.attentions.0.transformer_blocks.0.attn2.to_k.weight"].shape[1]
@@ -341,6 +359,85 @@ def _load_single_file(path, scheduler_name, v2, v_pred, weight_dtype, clip_skip,
     return LoadedModels(
         tokenizer=CLIPTokenizer.from_pretrained(tok_dir), text_encoder=te, unet=unet,
         scheduler=_scheduler(scheduler_name, v_pred), unet_config=unet_config)
+
+
+def load_models_xl(
+    pretrained_model_name_or_path: str,
+    scheduler_name: str = "ddim",
+    weight_dtype: torch.dtype = torch.float32,
+    lora_spec: Optional[LoRASpec] = None,
+    attn_backend: str = "xla",
+    device: str | torch.device = "cpu",
+    checkpoint_unet: bool = True,
+) -> LoadedModels:
+    """SDXL loader (model_util.load_models_xl, model_util.py:200-227): a
+    diffusers directory (`unet/` with `addition_embed_type`, `text_encoder/`,
+    `text_encoder_2/`, `tokenizer/`, `tokenizer_2/`) or an SDXL single
+    file. `tokenizer_2` pads with id 0 (model_util.py:150). The scheduler
+    predicts epsilon. `checkpoint_unet` defaults on, as the JAX loader's
+    `remat` does; the CLI passes the config's."""
+    path = pretrained_model_name_or_path
+    device = torch.device(device)
+    if path.endswith(".ckpt") or path.endswith(".safetensors"):
+        return _load_single_file_xl(path, scheduler_name, weight_dtype, lora_spec,
+                                    attn_backend, device, checkpoint_unet)
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f"{path!r} is not a local diffusers directory or checkpoint file. "
+            "leco-tpu is offline-only: download the model first.")
+
+    with open(os.path.join(path, "unet", "config.json")) as f:
+        unet_config = unet_config_from_json(json.load(f))
+    unet = build_unet(unet_config, load_component_tensors(os.path.join(path, "unet")),
+                      lora_spec, weight_dtype, attn_backend, device, checkpoint_unet)
+    encoders = []
+    for sub in ("text_encoder", "text_encoder_2"):
+        with open(os.path.join(path, sub, "config.json")) as f:
+            te_config = clip_config_from_json(json.load(f))
+        encoders.append(build_text_encoder(
+            te_config, load_component_tensors(os.path.join(path, sub)), weight_dtype,
+            device))
+    return LoadedModels(
+        tokenizer=CLIPTokenizer.from_pretrained(os.path.join(path, "tokenizer")),
+        text_encoder=encoders[0], unet=unet, scheduler=_scheduler(scheduler_name, False),
+        unet_config=unet_config,
+        tokenizer_2=CLIPTokenizer.from_pretrained(os.path.join(path, "tokenizer_2"),
+                                                  pad_token_id=0),
+        text_encoder_2=encoders[1])
+
+
+def _sibling_tokenizer(path: str, sub: str, pad_token_id=None) -> CLIPTokenizer:
+    tok_dir = os.path.join(os.path.dirname(os.path.abspath(path)), sub)
+    if not os.path.isdir(tok_dir):
+        raise FileNotFoundError(
+            f"single-file checkpoints need a {sub}/ directory (vocab.json + "
+            f"merges.txt) next to the checkpoint; none found at {tok_dir}. "
+            "(The reference downloaded it from the HF hub; this framework is "
+            "offline-only.)")
+    return CLIPTokenizer.from_pretrained(tok_dir, pad_token_id=pad_token_id)
+
+
+def _load_single_file_xl(path, scheduler_name, weight_dtype, lora_spec, attn_backend,
+                         device, checkpoint_unet) -> LoadedModels:
+    """An SDXL `.safetensors` / `.ckpt` (the reference's
+    StableDiffusionXLPipeline.from_single_file, model_util.py:179-197)."""
+    sd = load_tensor_file(path)
+    if not any(k.startswith(convert.XL_OPENCLIP_PREFIX) for k in sd):
+        raise ValueError(f"{path} does not look like an SDXL checkpoint")
+    unet_config = sdxl_config()
+    unet = build_unet(unet_config, convert.ldm_unet_to_diffusers(sd), lora_spec,
+                      weight_dtype, attn_backend, device, checkpoint_unet)
+    te1_sd = convert.ldm_clip_to_hf(sd, prefix=convert.XL_CLIP_PREFIX)
+    te2_sd = convert.ldm_openclip_to_hf(sd, prefix=convert.XL_OPENCLIP_PREFIX)
+    del sd
+    te1 = build_text_encoder(sd1_text_config(), te1_sd, weight_dtype, device)
+    del te1_sd
+    te2 = build_text_encoder(sdxl_text2_config(), te2_sd, weight_dtype, device)
+    return LoadedModels(
+        tokenizer=_sibling_tokenizer(path, "tokenizer"), text_encoder=te1, unet=unet,
+        scheduler=_scheduler(scheduler_name, False), unet_config=unet_config,
+        tokenizer_2=_sibling_tokenizer(path, "tokenizer_2", pad_token_id=0),
+        text_encoder_2=te2)
 
 
 def load_vae_decoder(pretrained_model_name_or_path: str,

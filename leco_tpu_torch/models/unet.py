@@ -24,7 +24,14 @@ back the compute dtype, as the JAX package's FusedGroupNorm / LayerNorm do.
 mid and up blocks) runs each of those blocks under
 `torch.utils.checkpoint` while grad is enabled: its activations are not
 kept, and the backward runs its forward again, kernels and all.
-SDXL's added text-time embedding is not ported yet.
+SDXL (`sdxl_config`, `addition_embed_type="text_time"`) adds the
+micro-conditioning embedding: the sinusoids of the six `time_ids` at
+`addition_time_embed_dim`, concatenated in fp32 after the pooled
+`text_embeds`, through a TimestepEmbedding named `add_embedding` whose
+output is added to the time embedding before any block runs.
+A float64 UNet computes in float64, its norms' statistics and sinusoids
+included (a reference for the fp32 and bf16 forwards; the GEGLU's
+polynomial gelu rounds through fp32).
 """
 
 from __future__ import annotations
@@ -69,7 +76,9 @@ class UNetConfig:
     attention_head_dim: Union[int, tuple] = 8
     use_linear_projection: bool = False
     upcast_attention: bool = False
-    addition_embed_type: Optional[str] = None
+    addition_embed_type: Optional[str] = None  # "text_time" for SDXL
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
     norm_num_groups: int = 32
 
     def per_block(self, value) -> tuple:
@@ -107,6 +116,23 @@ def sd21_config() -> UNetConfig:
     )
 
 
+def sdxl_config() -> UNetConfig:
+    """SDXL base: 2.6B params, 3 levels (the first without attention), the
+    10-deep level-3 transformer stack (the mid block's too), 2048-d context
+    (CLIP-L and bigG concatenated), linear projections, text_time."""
+    return UNetConfig(
+        sample_size=128,
+        down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+        up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+        block_out_channels=(320, 640, 1280),
+        transformer_layers_per_block=(1, 2, 10),
+        cross_attention_dim=2048,
+        attention_head_dim=(5, 10, 20),
+        use_linear_projection=True,
+        addition_embed_type="text_time",
+    )
+
+
 def tiny_unet_config(cross_attention_dim: int = 32) -> UNetConfig:
     """2-level, 8-channel UNet for CPU tests."""
     return UNetConfig(
@@ -125,12 +151,18 @@ def tiny_unet_config(cross_attention_dim: int = 32) -> UNetConfig:
 # ---------------------------------------------------------------------------
 
 
-def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sinusoid with flip_sin_to_cos=True, freq_shift=0: [cos | sin], fp32."""
+def stat_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of statistics and sinusoids: fp32, or fp64 for fp64."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Sinusoid with flip_sin_to_cos=True, freq_shift=0: [cos | sin], in
+    `dtype` (fp32, or fp64 for the float64 reference)."""
     half = dim // 2
-    exponent = -math.log(10000.0) * torch.arange(half, dtype=torch.float32,
-                                                 device=t.device) / half
-    emb = t.float()[:, None] * torch.exp(exponent)[None, :]
+    exponent = -math.log(10000.0) * torch.arange(half, dtype=dtype, device=t.device) / half
+    emb = t.to(dtype)[:, None] * torch.exp(exponent)[None, :]
     return torch.cat([torch.cos(emb), torch.sin(emb)], dim=-1)
 
 
@@ -157,8 +189,9 @@ class GroupNorm(nn.Module):
         if gn_ops.fused_enabled() and gn_ops.supports(x.dtype, x.device):
             return gn_ops.fused_group_norm(x, self.weight, self.bias, self.groups,
                                            self.eps, self.silu)
-        y = F.group_norm(x.float(), self.groups, self.weight.float(),
-                         self.bias.float(), self.eps)
+        sd = stat_dtype(x.dtype)
+        y = F.group_norm(x.to(sd), self.groups, self.weight.to(sd), self.bias.to(sd),
+                         self.eps)
         if self.silu:
             y = F.silu(y)
         return y.to(x.dtype)
@@ -174,8 +207,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x, dtype):
-        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
-                         self.bias.float(), self.eps)
+        sd = stat_dtype(x.dtype)
+        y = F.layer_norm(x.to(sd), (x.shape[-1],), self.weight.to(sd), self.bias.to(sd),
+                         self.eps)
         return y.to(dtype)
 
 
@@ -313,7 +347,9 @@ class Transformer2DModel(nn.Module):
         else:
             x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
             x = self.proj_out(x)
-        return x + residual
+        # the sum takes its first operand's layout: NCHW, which the kernels
+        # downstream read (x is a channels_last view on the linear route)
+        return residual + x
 
 
 class Downsample2D(nn.Module):
@@ -459,15 +495,17 @@ class UpBlock2D(nn.Module):
 
 class UNet2DConditionModel(nn.Module):
     """The SD denoising UNet: forward(sample (B, 4, H, W), timesteps (scalar
-    or (B,)), encoder_hidden_states (B, 77, ctx)) -> (B, 4, H, W) in the
-    compute dtype. Parameters are created empty; fill them with
+    or (B,)), encoder_hidden_states (B, 77, ctx), added_cond_kwargs=None)
+    -> (B, 4, H, W) in the compute dtype. `added_cond_kwargs` is SDXL's
+    {"text_embeds": (B, pooled), "time_ids": (B, 6)}, required there and
+    ignored elsewhere. Parameters are created empty; fill them with
     `leco_tpu_torch.testing.init_unet_` or `load_state_dict`."""
 
     def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.float32,
                  attn_backend: str = "xla", checkpoint_unet: bool = False):
         super().__init__()
-        if cfg.addition_embed_type is not None:
-            raise NotImplementedError("SDXL added embeddings are not ported yet")
+        if cfg.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"unknown addition_embed_type: {cfg.addition_embed_type}")
         self.cfg = cfg
         self.dtype = dtype
         self.checkpoint_unet = checkpoint_unet
@@ -481,6 +519,9 @@ class UNet2DConditionModel(nn.Module):
 
         self.conv_in = LoRAConv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch[0], temb_dim)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim, temb_dim)
 
         # down: track skip channels exactly as the stack accumulates
         self.down_blocks = nn.ModuleList()
@@ -543,16 +584,37 @@ class UNet2DConditionModel(nn.Module):
             if isinstance(mod, Attention):
                 mod.backend = backend
 
-    def forward(self, sample, timesteps, encoder_hidden_states):
+    @property
+    def is_xl(self) -> bool:
+        return self.cfg.addition_embed_type == "text_time"
+
+    def forward(self, sample, timesteps, encoder_hidden_states, added_cond_kwargs=None):
         cfg = self.cfg
         sample = sample.to(self.dtype)
         ctx = encoder_hidden_states.to(self.dtype)
         b = sample.shape[0]
-        t = torch.as_tensor(timesteps, dtype=torch.float32, device=sample.device)
+        sd = stat_dtype(self.dtype)
+        t = torch.as_tensor(timesteps, dtype=sd, device=sample.device)
         t = torch.broadcast_to(torch.atleast_1d(t), (b,))
         emb = self.time_embedding(
-            timestep_embedding(t, cfg.block_out_channels[0]).to(self.dtype)
+            timestep_embedding(t, cfg.block_out_channels[0], sd).to(self.dtype)
         )
+        if self.is_xl:
+            if added_cond_kwargs is None:
+                raise ValueError("an SDXL UNet needs added_cond_kwargs={'text_embeds', "
+                                 "'time_ids'}")
+            time_ids = added_cond_kwargs["time_ids"].to(sample.device)
+            time_embeds = timestep_embedding(
+                time_ids.reshape(-1), cfg.addition_time_embed_dim, sd).reshape(b, -1)
+            # the JAX order: text_embeds to fp32, the concat, then the Dense
+            # in the compute dtype
+            add_embeds = torch.cat(
+                [added_cond_kwargs["text_embeds"].to(sample.device, sd), time_embeds], dim=-1)
+            if add_embeds.shape[-1] != cfg.projection_class_embeddings_input_dim:
+                raise ValueError(
+                    f"added embedding of width {add_embeds.shape[-1]}, the UNet wants "
+                    f"{cfg.projection_class_embeddings_input_dim}")
+            emb = emb + self.add_embedding(add_embeds.to(self.dtype))
 
         if self.checkpoint_unet and torch.is_grad_enabled():
             def run(block, *args):

@@ -63,8 +63,7 @@ def multi_head_attention(
 
     if (backend == "flash" and fa.packed_enabled()
             and fa.supports(q.shape[1], k.shape[1], q.dtype, q.device)
-            and fa.supports_packed(q.shape[1], k.shape[1], q.shape[-1], num_heads,
-                                   q.dtype.itemsize)):
+            and fa.supports_packed(q.shape[1], k.shape[1], q.shape[-1], num_heads)):
         return fa.flash_attention_packed(q.contiguous(), k.contiguous(), v.contiguous(),
                                          num_heads, scale)
     if backend == "flash" and fa.supports(q.shape[1], k.shape[1], q.dtype, q.device):

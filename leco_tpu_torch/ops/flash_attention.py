@@ -58,39 +58,15 @@ def kernel_backward() -> bool:
     return os.environ.get("LECO_FLASH_BWD", "pallas") == "pallas"
 
 
-# the JAX package's packed-kernel sizing (flash_attention.py:559-574): the
-# q-block it would pick under its 12 MB VMEM budget decides which shapes the
-# packed route takes, so LECO_FLASH_PACKED=1 sends the layers JAX sends
-_MAX_BQ = 512
-_VMEM_BUDGET = 12 * 1024 * 1024
 PACKED_KV_ALIGN = 128
 
 
-def _packed_vmem_bytes(bq: int, nk_pad: int, c: int, itemsize: int) -> int:
-    qo = 2 * 2 * bq * c * itemsize  # double-buffered q + o blocks
-    kv = 2 * 2 * nk_pad * c * itemsize  # double-buffered full K + V
-    logits = 2 * bq * nk_pad * 4  # fp32 logits + exp
-    probs = bq * nk_pad * itemsize
-    return qo + kv + logits + probs
-
-
-def _pick_q_block_packed(nq: int, nk_pad: int, c: int, itemsize: int) -> int:
-    for bq in (512, 256, 128, 64, 32, 16, 8):
-        if bq > _MAX_BQ or nq % bq != 0:
-            continue
-        if _packed_vmem_bytes(bq, nk_pad, c, itemsize) > _VMEM_BUDGET:
-            continue
-        return bq
-    return 0
-
-
-def supports_packed(nq: int, nk: int, c: int, heads: int, itemsize: int = 2) -> bool:
-    """The JAX package's `supports_packed` (:650-656): self-attention with
-    Nq, Nk >= 256 whose q-block fits its VMEM arithmetic."""
-    if c % heads != 0:
-        return False
-    nk_pad = -(-nk // PACKED_KV_ALIGN) * PACKED_KV_ALIGN
-    return nq >= 256 and nk >= 256 and _pick_q_block_packed(nq, nk_pad, c, itemsize) > 0
+def supports_packed(nq: int, nk: int, c: int, heads: int) -> bool:
+    """The JAX package's `supports_packed` (:650-656) without its VMEM
+    arithmetic, a TPU limit (the port keeps the JAX package's shape gates
+    only, as `supports` does): self-attention with Nq, Nk >= 256 and whole
+    heads."""
+    return c % heads == 0 and nq >= 256 and nk >= 256
 
 
 def packed_enabled() -> bool:

@@ -8,7 +8,7 @@ unconditional) and ignored unknown keys as the JAX package's pydantic model.
 
 import dataclasses
 from pathlib import Path
-from typing import Literal, Optional
+from typing import Callable, Literal, Optional, Union
 
 import torch
 
@@ -44,16 +44,30 @@ class PromptSettings(_Section):
         return super().from_dict(values)
 
 
+class PromptEmbedsXL:
+    """SDXL's two embeddings of a prompt (prompt_util.py:17-24): the
+    sequence `text_embeds` (1, 77, 2048) and the pooled `pooled_embeds`
+    (1, 1280)."""
+
+    def __init__(self, text_embeds: torch.Tensor, pooled_embeds: torch.Tensor) -> None:
+        self.text_embeds = text_embeds
+        self.pooled_embeds = pooled_embeds
+
+
+# SD1.x/2.x cache values are tensors, SDXL's PromptEmbedsXL
+PROMPT_EMBEDDING = Union[torch.Tensor, PromptEmbedsXL]
+
+
 class PromptEmbedsCache:
     """Prompt string -> embedding, computed once before the train loop."""
 
     def __init__(self) -> None:
-        self.prompts: dict[str, torch.Tensor] = {}
+        self.prompts: dict[str, PROMPT_EMBEDDING] = {}
 
-    def __setitem__(self, name: str, value: torch.Tensor) -> None:
+    def __setitem__(self, name: str, value: PROMPT_EMBEDDING) -> None:
         self.prompts[name] = value
 
-    def __getitem__(self, name: str) -> Optional[torch.Tensor]:
+    def __getitem__(self, name: str) -> Optional[PROMPT_EMBEDDING]:
         return self.prompts.get(name)
 
 
@@ -119,3 +133,45 @@ def load_prompts_from_yaml(path: str | Path) -> list[PromptSettings]:
     if not prompts:
         raise ValueError("prompts file is empty")
     return [PromptSettings.from_dict(prompt) for prompt in prompts]
+
+
+def make_encode_fn(tokenizer, text_encoder: torch.nn.Module, device) -> Callable:
+    """prompt -> (1, 77, d) embedding: tokenize, then the CLIP text encoder's
+    final-LayerNorm last hidden state (train_util.encode_prompts,
+    train_util.py:77-85; the JAX CLI's encode_fn, train_lora.py:69-74)."""
+
+    @torch.no_grad()
+    def encode(prompt: str) -> torch.Tensor:
+        ids = torch.from_numpy(tokenizer([prompt]).astype("int64")).to(device)
+        last, _, _ = text_encoder(ids)
+        return last
+
+    return encode
+
+
+def make_encode_fn_xl(tokenizers, text_encoders, device) -> Callable:
+    """prompt -> PromptEmbedsXL: per encoder the penultimate hidden state
+    (`hidden_states[-2]`, before the final LayerNorm), concatenated on the
+    feature dim (768 + 1280 = 2048); the pooled embedding is encoder 2's
+    projected EOS state (train_util.encode_prompts_xl, train_util.py:107-130;
+    the JAX CLI's encode_fn, train_lora_xl.py:58-69)."""
+
+    @torch.no_grad()
+    def encode(prompt: str) -> PromptEmbedsXL:
+        seqs, pooled = [], None
+        for tokenizer, text_encoder in zip(tokenizers, text_encoders):
+            ids = torch.from_numpy(tokenizer([prompt]).astype("int64")).to(device)
+            _, pooled, hidden = text_encoder(ids)
+            seqs.append(hidden[-2])
+        return PromptEmbedsXL(torch.cat(seqs, dim=-1), pooled)
+
+    return encode
+
+
+def prompt_encoder(models, device) -> Callable:
+    """The prompt encoder of a loader's `LoadedModels`: `make_encode_fn_xl`
+    over both tokenizers and encoders for SDXL, else `make_encode_fn`."""
+    if models.is_xl:
+        return make_encode_fn_xl([models.tokenizer, models.tokenizer_2],
+                                 [models.text_encoder, models.text_encoder_2], device)
+    return make_encode_fn(models.tokenizer, models.text_encoder, device)

@@ -17,7 +17,12 @@ directory. For inference and eval, `write_vae_dir` writes a diffusers
 `write_clip_dir` a CLIP dual-encoder directory (`config.json` with
 `text_config`, `vision_config` and `projection_dim`, one `model.safetensors`,
 a synthetic tokenizer; ViT-L/14 with its 12-layer text tower by default).
-Both packages' loaders read these files. The tokenizer is synthetic: the byte-level base vocabulary of
+For SDXL, `write_sdxl_single_file` writes an SDXL LDM single file (the
+UNet with `label_emb`, CLIP-L under `conditioner.embedders.0.transformer.`,
+bigG under `conditioner.embedders.1.model.`) with `tokenizer/` and
+`tokenizer_2/` beside it, generating and writing one tensor at a time (full
+width is 6.8 GB in fp16), and `write_sdxl_diffusers_checkpoint` the
+diffusers layout. Both packages' loaders read these files. The tokenizer is synthetic: the byte-level base vocabulary of
 CLIP's BPE (512 entries), merges that make each given word one token, and
 `<|startoftext|>` 49406 and `<|endoftext|>` 49407, so every id is below
 49408 and any text tokenizes.
@@ -49,7 +54,13 @@ from leco_tpu_torch.lora import (
     write_safetensors,
 )
 from leco_tpu_torch.models import convert
-from leco_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, sd2_text_config
+from leco_tpu_torch.models.clip import (
+    CLIPTextConfig,
+    CLIPTextModel,
+    sd1_text_config,
+    sd2_text_config,
+    sdxl_text2_config,
+)
 from leco_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
 from leco_tpu_torch.models.tokenizer import SPECIAL_TOKENS, _bytes_to_unicode
 from leco_tpu_torch.models.unet import (
@@ -57,6 +68,7 @@ from leco_tpu_torch.models.unet import (
     UNetConfig,
     sd15_config,
     sd21_config,
+    sdxl_config,
     tiny_unet_config,
 )
 from leco_tpu_torch.models.vae import VAEDecoder, VAEDecoderConfig
@@ -64,6 +76,7 @@ from leco_tpu_torch.ops import conv, geglu, gn_conv
 from leco_tpu_torch.ops import group_norm as gn
 from leco_tpu_torch.ops.attention import default_backend
 from leco_tpu_torch.ops.schedulers import NoiseScheduler
+from leco_tpu_torch.prompts import PromptEmbedsXL
 from leco_tpu_torch.train.trainer import ModelBundle
 
 
@@ -99,17 +112,49 @@ def geglu_control(x, weight, bias, xd=None, up=None):
     return geglu.geglu_gemm_plain(x[:, :k], weight[:, :k], bias, xd, up)
 
 
-def fake_encode_fn(cross_attention_dim: int, device):
+def fake_encode_fn(cross_attention_dim: int, device, pooled_dim: Optional[int] = None):
     """Deterministic pseudo-embedding per prompt string: the ESD objective
-    only needs distinct, consistent embeddings."""
+    only needs distinct, consistent embeddings. With `pooled_dim` (SDXL) a
+    PromptEmbedsXL, its pooled embedding drawn after the sequence."""
 
-    def encode(prompt: str) -> torch.Tensor:
+    def encode(prompt: str):
         digest = hashlib.sha256(prompt.encode()).digest()
         rng = np.random.default_rng(int.from_bytes(digest[:4], "little"))
-        seq = rng.standard_normal((1, 77, cross_attention_dim), dtype=np.float32)
-        return torch.from_numpy(seq).to(device)
+        seq = torch.from_numpy(
+            rng.standard_normal((1, 77, cross_attention_dim), dtype=np.float32)).to(device)
+        if pooled_dim is None:
+            return seq
+        pooled = rng.standard_normal((1, pooled_dim), dtype=np.float32)
+        return PromptEmbedsXL(seq, torch.from_numpy(pooled).to(device))
 
     return encode
+
+
+def xl_pooled_dim(config: UNetConfig) -> int:
+    """The pooled embedding's width an SDXL UNet config implies."""
+    return config.projection_class_embeddings_input_dim - 6 * config.addition_time_embed_dim
+
+
+def tiny_xl_unet_config(depth: int = 3) -> UNetConfig:
+    """SDXL's layout at CPU-test widths: 3 levels (the first without
+    attention), 2 layers a block (the LDM layout's), transformer depths
+    (1, 2, `depth`) with the mid block at `depth`, every head 8 wide,
+    linear projections, text_time with 4-wide time sinusoids and an 8-wide
+    pooled embedding (4 x 6 + 8 = 32, the JAX tests' tiny XL widths)."""
+    return UNetConfig(
+        down_block_types=("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"),
+        up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+        block_out_channels=(8, 16, 32),
+        layers_per_block=2,
+        transformer_layers_per_block=(1, 2, depth),
+        cross_attention_dim=32,
+        attention_head_dim=(1, 2, 4),
+        use_linear_projection=True,
+        norm_num_groups=4,
+        addition_embed_type="text_time",
+        addition_time_embed_dim=4,
+        projection_class_embeddings_input_dim=4 * 6 + 8,
+    )
 
 
 @torch.no_grad()
@@ -162,7 +207,8 @@ def make_random_bundle(
         scheduler=NoiseScheduler(scheduler_kind, prediction_type),
         spec=spec,
         device=device,
-        encode_fn=fake_encode_fn(config.cross_attention_dim, device),
+        encode_fn=fake_encode_fn(config.cross_attention_dim, device,
+                                 xl_pooled_dim(config) if unet.is_xl else None),
     )
 
 
@@ -170,6 +216,12 @@ def make_sd15_bundle(dtype: torch.dtype = torch.bfloat16, **kw) -> ModelBundle:
     """Full-width SD1.5 bundle with random weights."""
     return make_random_bundle(config=sd15_config(), dtype=dtype,
                               param_dtype=dtype, **kw)
+
+
+def make_sdxl_bundle(dtype: torch.dtype = torch.bfloat16, **kw) -> ModelBundle:
+    """Full-width SDXL bundle with random weights and a fake encoder that
+    gives PromptEmbedsXL."""
+    return make_random_bundle(config=sdxl_config(), dtype=dtype, param_dtype=dtype, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -294,32 +346,131 @@ def write_diffusers_checkpoint(
     """A diffusers directory with random fp32 weights: `unet/` and
     `text_encoder/` (config.json + weights) and a synthetic `tokenizer/`."""
     root = Path(root)
-    udir, tdir = root / "unet", root / "text_encoder"
-    udir.mkdir(parents=True, exist_ok=True)
-    tdir.mkdir(parents=True, exist_ok=True)
-    (udir / "config.json").write_text(json.dumps({
-        "down_block_types": list(unet_config.down_block_types),
-        "up_block_types": list(unet_config.up_block_types),
-        "block_out_channels": list(unet_config.block_out_channels),
-        "layers_per_block": unet_config.layers_per_block,
-        "transformer_layers_per_block": unet_config.transformer_layers_per_block,
-        "cross_attention_dim": unet_config.cross_attention_dim,
-        "attention_head_dim": unet_config.attention_head_dim,
-        "use_linear_projection": unet_config.use_linear_projection,
-        "upcast_attention": unet_config.upcast_attention,
-        "norm_num_groups": unet_config.norm_num_groups,
-    }))
-    write_safetensors(udir / "diffusion_pytorch_model.safetensors",
-                      random_unet_state(unet_config, seed, torch.float32))
-    (tdir / "config.json").write_text(json.dumps({
-        "architectures": ["CLIPTextModel"],
-        **{f: getattr(text_config, f) for f in (
-            "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
-            "num_attention_heads", "max_position_embeddings", "hidden_act", "eos_token_id")},
-    }))
-    write_safetensors(tdir / "model.safetensors",
-                      random_clip_state(text_config, seed + 1, torch.float32))
+    _write_component(root / "unet", _unet_config_json(unet_config),
+                     random_unet_state(unet_config, seed, torch.float32))
+    _write_component(root / "text_encoder", _clip_config_json(text_config),
+                     random_clip_state(text_config, seed + 1, torch.float32))
     write_tokenizer(root / "tokenizer")
+    return root
+
+
+def _write_component(directory: Path, config: dict, state: dict) -> None:
+    """A diffusers component directory: `config.json` and its weights."""
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "config.json").write_text(json.dumps(config))
+    fname = ("diffusion_pytorch_model.safetensors" if directory.name == "unet"
+             else "model.safetensors")
+    write_safetensors(directory / fname, state)
+
+
+def _unet_config_json(config: UNetConfig) -> dict:
+    return {
+        "down_block_types": list(config.down_block_types),
+        "up_block_types": list(config.up_block_types),
+        "block_out_channels": list(config.block_out_channels),
+        "layers_per_block": config.layers_per_block,
+        "transformer_layers_per_block": config.transformer_layers_per_block,
+        "cross_attention_dim": config.cross_attention_dim,
+        "attention_head_dim": config.attention_head_dim,
+        "use_linear_projection": config.use_linear_projection,
+        "upcast_attention": config.upcast_attention,
+        "norm_num_groups": config.norm_num_groups,
+        "addition_embed_type": config.addition_embed_type,
+        "addition_time_embed_dim": config.addition_time_embed_dim,
+        "projection_class_embeddings_input_dim": config.projection_class_embeddings_input_dim,
+    }
+
+
+def _clip_config_json(config: CLIPTextConfig) -> dict:
+    return {
+        "architectures": ["CLIPTextModelWithProjection" if config.projection_dim
+                          else "CLIPTextModel"],
+        **{f: getattr(config, f) for f in (
+            "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
+            "num_attention_heads", "max_position_embeddings", "hidden_act", "eos_token_id",
+            "projection_dim")},
+    }
+
+
+def _random_like(name: str, shape: tuple, generator: torch.Generator, device,
+                 norm: bool, lecun: bool) -> torch.Tensor:
+    """One random fp32 tensor on `device`: a norm parameter at 1 + N(0, 0.1)
+    (weight) or N(0, 0.1) (bias); any other bias 0; a weight LeCun normal
+    (`lecun`, std 1/sqrt(fan_in)) or N(0, 0.02)."""
+    if norm:
+        draw = torch.randn(shape, generator=generator, device=device)
+        return (1 + 0.1 * draw) if name.endswith("weight") else 0.1 * draw
+    if name.endswith("bias"):
+        return torch.zeros(shape, device=device)
+    draw = torch.randn(shape, generator=generator, device=device)
+    if lecun:
+        fan_in = math.prod(shape[1:])
+        return draw * (1.0 / math.sqrt(fan_in))
+    return 0.02 * draw
+
+
+def write_sdxl_single_file(
+    path: str | os.PathLike,
+    unet_config: Optional[UNetConfig] = None,
+    te1: Optional[CLIPTextConfig] = None,
+    te2: Optional[CLIPTextConfig] = None,
+    seed: int = 0,
+    dtype: torch.dtype = torch.float16,
+    device: str | torch.device = "cpu",
+) -> Path:
+    """An SDXL LDM single file with random weights, by default SDXL base at
+    full width (the 2.57B UNet, CLIP-L, bigG with its projection: 6.8 GB in
+    fp16), plus a synthetic `tokenizer/` and `tokenizer_2/` beside it. Each
+    tensor is drawn on `device` (UNet weights LeCun normal, text towers
+    N(0, 0.02), norms at 1 + N(0, 0.1) / N(0, 0.1), other biases 0) from one
+    generator seeded `seed`, in the file's key order, and written before the
+    next is drawn: host memory holds one tensor at a time."""
+    path = Path(path)
+    unet_config = unet_config or sdxl_config()
+    te1 = te1 or sd1_text_config()
+    te2 = te2 or sdxl_text2_config()
+    with torch.device("meta"):
+        unet_state = UNet2DConditionModel(unet_config).state_dict()
+        te1_state = CLIPTextModel(te1).state_dict()
+        te2_state = CLIPTextModel(te2).state_dict()
+    # LDM key -> (shape, is a norm parameter, is a UNet weight)
+    unet_names = convert.diffusers_unet_to_ldm({k: k for k in unet_state})
+    specs = {ldm: (unet_state[k].shape, "norm" in k.rsplit(".", 2)[-2], True)
+             for ldm, k in unet_names.items()}
+    specs.update({convert.XL_CLIP_PREFIX + k: (v.shape, "norm" in k.rsplit(".", 2)[-2], False)
+                  for k, v in te1_state.items()})
+    for k, v in convert.hf_clip_to_openclip(te2_state, convert.XL_OPENCLIP_PREFIX).items():
+        specs[k] = (v.shape, ".ln_" in f".{k.rsplit('.', 2)[-2]}", False)
+    generator = torch.Generator(device)
+    generator.manual_seed(seed)
+
+    def fill(name: str) -> torch.Tensor:
+        shape, norm, lecun = specs[name]
+        return _random_like(name, tuple(shape), generator, device, norm, lecun).to(dtype)
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_safetensors(path, {k: torch.empty(s, dtype=dtype, device="meta")
+                             for k, (s, _, _) in specs.items()}, fill=fill)
+    write_tokenizer(path.parent / "tokenizer")
+    write_tokenizer(path.parent / "tokenizer_2")
+    return path
+
+
+def write_sdxl_diffusers_checkpoint(
+    root: str | os.PathLike,
+    unet_config: UNetConfig,
+    te1: CLIPTextConfig,
+    te2: CLIPTextConfig,
+    seed: int = 0,
+) -> Path:
+    """An SDXL diffusers directory with random fp32 weights: `unet/`
+    (config.json with `addition_embed_type`), `text_encoder/`,
+    `text_encoder_2/` (a `CLIPTextModelWithProjection` where `te2` has a
+    projection) and synthetic `tokenizer/` and `tokenizer_2/`."""
+    root = write_diffusers_checkpoint(root, unet_config, te1, seed)
+    _write_component(root / "text_encoder_2", _clip_config_json(te2),
+                     random_clip_state(te2, seed + 2, torch.float32))
+    write_tokenizer(root / "tokenizer_2")
     return root
 
 

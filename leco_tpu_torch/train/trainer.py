@@ -28,6 +28,13 @@ the JAX package. Refused: `step_chunk > 1` (the JAX package's device-side
 scan, not ported) and tensor or spatial parallelism (ROADMAP.md). Progress
 is one printed line per iteration (`Loss*1k`), where the reference draws a
 tqdm bar.
+
+SDXL (`ModelBundle.is_xl`, the JAX trainer's): the prompt cache holds
+`PromptEmbedsXL`; each pack carries `inner_added`, `ref_added` and
+`target_added`, the pooled embeddings in the order of the sequences and the
+tiled `time_ids`, which every UNet call of the step receives. A pack is
+cached per (pair, height, width), except that a pair with `dynamic_crops`
+draws new `time_ids` every iteration from the run's numpy generator.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from leco_tpu_torch.prompts import (
     PromptEmbedsPair,
     PromptSettings,
     esd_loss,
+    prompt_encoder,
 )
 from leco_tpu_torch.train import diffusion as diff
 from leco_tpu_torch.train.optim import get_lr_schedule, get_optimizer
@@ -70,15 +78,28 @@ class ModelBundle:
     scheduler: sched.NoiseScheduler
     spec: LoRASpec
     device: torch.device
-    encode_fn: Optional[Callable] = None  # str -> (1, 77, d) fp32 tensor
+    encode_fn: Optional[Callable] = None  # str -> (1, 77, d) tensor [or PromptEmbedsXL]
+
+    @classmethod
+    def from_loaded(cls, models, spec: LoRASpec, device) -> "ModelBundle":
+        """The bundle of a loader's `LoadedModels`, its prompt encoder the
+        CLI's (`prompt_encoder`)."""
+        return cls(unet=models.unet, scheduler=models.scheduler, spec=spec,
+                   device=torch.device(device), encode_fn=prompt_encoder(models, device))
+
+    @property
+    def is_xl(self) -> bool:
+        return self.unet.is_xl
 
     @property
     def lora_params(self) -> dict[str, torch.nn.Parameter]:
         return lora_parameters(self.unet)
 
     def free_text_encoder(self):
-        """The reference deletes the text encoder after caching
-        (train_lora.py:134-137)."""
+        """The reference deletes the text encoder(s) after caching
+        (train_lora.py:134-137, train_lora_xl.py): `encode_fn` holds the
+        only references to them (both of SDXL's), so dropping it frees
+        them."""
         self.encode_fn = None
 
 
@@ -118,6 +139,7 @@ def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
                     unet, state_n, latents, pack["inner_embeds"], timesteps_to,
                     guidance_scale=inner_guidance_scale,
                     noise=noise if generator is not None else None,
+                    added_cond_kwargs=pack.get("inner_added"),
                 )
 
             # ---- training timestep on the 1000-step schedule
@@ -129,11 +151,11 @@ def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
             # ---- 3 reference predictions, LoRA off, one batched call
             with lora_mode(unet, "off"):
                 ref_preds = unet(denoised.repeat(3, 1, 1, 1) * in_scale, t,
-                                 pack["ref_embeds"]).float()
+                                 pack["ref_embeds"], pack.get("ref_added")).float()
             positive, neutral, uncond = ref_preds.chunk(3, dim=0)
 
         # ---- differentiated target prediction, LoRA on (train_lora.py:244-256)
-        pred = unet(denoised * in_scale, t, pack["target_embeds"])
+        pred = unet(denoised * in_scale, t, pack["target_embeds"], pack.get("target_added"))
         loss = esd_loss(pred, positive, uncond, neutral, guidance_scale, erase_sign)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -143,37 +165,46 @@ def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
     return step
 
 
-def make_encode_fn(tokenizer, text_encoder: torch.nn.Module, device) -> Callable:
-    """prompt -> (1, 77, d) embedding: tokenize, then the CLIP text encoder's
-    final-LayerNorm last hidden state (train_util.encode_prompts,
-    train_util.py:77-85; the JAX CLI's encode_fn, train_lora.py:69-74)."""
-
-    @torch.no_grad()
-    def encode(prompt: str) -> torch.Tensor:
-        ids = torch.from_numpy(tokenizer([prompt]).astype("int64")).to(device)
-        last, _, _ = text_encoder(ids)
-        return last
-
-    return encode
-
-
-def build_pack(pair: PromptEmbedsPair) -> dict:
+def build_pack(pair: PromptEmbedsPair, is_xl: bool = False, height: int = 0,
+               width: int = 0, rng: Optional[np.random.Generator] = None) -> dict:
     """The per-iteration embedding batches for one prompt pair: inner
     [uncond]*b + [target]*b, references [positive]*b + [neutral]*b +
-    [uncond]*b, target [target]*b."""
+    [uncond]*b, target [target]*b. SDXL (cache values PromptEmbedsXL) adds
+    `inner_added`, `ref_added` and `target_added`: the pooled embeddings in
+    the same order and `get_add_time_ids(height, width)` tiled, drawn from
+    `rng` under the pair's `dynamic_crops` (JAX trainer.py:337-389)."""
     b = pair.batch_size
-    return {
-        "inner_embeds": diff.concat_embeddings(pair.unconditional, pair.target, b),
+
+    def seq(e):
+        return e.text_embeds if is_xl else e
+
+    target, positive, uncond, neutral = (pair.target, pair.positive, pair.unconditional,
+                                         pair.neutral)
+    pack = {
+        "inner_embeds": diff.concat_embeddings(seq(uncond), seq(target), b),
         "ref_embeds": torch.cat(
             [
-                pair.positive.repeat_interleave(b, dim=0),
-                pair.neutral.repeat_interleave(b, dim=0),
-                pair.unconditional.repeat_interleave(b, dim=0),
+                seq(positive).repeat_interleave(b, dim=0),
+                seq(neutral).repeat_interleave(b, dim=0),
+                seq(uncond).repeat_interleave(b, dim=0),
             ],
             dim=0,
         ),
-        "target_embeds": pair.target.repeat_interleave(b, dim=0),
+        "target_embeds": seq(target).repeat_interleave(b, dim=0),
     }
+    if is_xl:
+        time_ids = torch.from_numpy(diff.get_add_time_ids(
+            height, width, dynamic_crops=pair.dynamic_crops, rng=rng)).to(
+                target.pooled_embeds.device)
+
+        def added(embeds: list, n: int) -> dict:
+            pooled = torch.cat([e.pooled_embeds.repeat_interleave(b, dim=0) for e in embeds])
+            return {"text_embeds": pooled, "time_ids": time_ids.repeat(n * b, 1)}
+
+        pack["inner_added"] = added([uncond, target], 2)
+        pack["ref_added"] = added([positive, neutral, uncond], 3)
+        pack["target_added"] = added([target], 1)
+    return pack
 
 
 def encode_prompt_pairs(prompts: list[PromptSettings],
@@ -377,9 +408,15 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
                 if pair.dynamic_resolution:
                     print("bucketed resolution:", (height, width))
                 print("batch_size:", pair.batch_size)
-            pack = pack_cache.get(id(pair))
-            if pack is None:
-                pack = pack_cache[id(pair)] = build_pack(pair)
+            # SDXL's dynamic_crops re-rolls time_ids every iteration (JAX
+            # trainer.py:803-815); every other pack is cached
+            if bundle.is_xl and pair.dynamic_crops:
+                pack = build_pack(pair, True, height, width, rng=rng)
+            else:
+                key = (id(pair), height, width)
+                pack = pack_cache.get(key)
+                if pack is None:
+                    pack = pack_cache[key] = build_pack(pair, bundle.is_xl, height, width)
 
             for group in optimizer.param_groups:
                 group["lr"] = lr_at(i)

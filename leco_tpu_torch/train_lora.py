@@ -31,20 +31,16 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def main(args, on_step=None) -> dict:
+def main(args, on_step=None, xl: bool = False) -> dict:
     """Train as the config says; returns `train()`'s result. `on_step(i,
-    loss)` is `train()`'s optional observer hook."""
+    loss)` is `train()`'s optional observer hook. `xl` loads the model with
+    `load_models_xl` (`leco_tpu_torch.train_lora_xl`)."""
     from leco_tpu_torch.config import load_config_from_yaml, parse_precision
     from leco_tpu_torch.lora import LoRASpec
-    from leco_tpu_torch.models.loader import load_models
+    from leco_tpu_torch.models.loader import load_models, load_models_xl
     from leco_tpu_torch.ops.attention import default_backend
     from leco_tpu_torch.prompts import load_prompts_from_yaml
-    from leco_tpu_torch.train.trainer import (
-        ModelBundle,
-        _refuse_unported,
-        make_encode_fn,
-        train,
-    )
+    from leco_tpu_torch.train.trainer import ModelBundle, _refuse_unported, train
     from leco_tpu_torch.utils.debug import check_frozen_params, check_trainable_params
 
     device = resolve_device(args.device)
@@ -62,26 +58,22 @@ def main(args, on_step=None) -> dict:
     if use_flash is None:
         use_flash = config.other.use_xformers or default_backend(device) == "flash"
 
-    models = load_models(
-        config.pretrained_model.name_or_path,
+    load_kw = dict(
         scheduler_name=config.train.noise_scheduler,
-        v2=config.pretrained_model.v2,
-        v_pred=config.pretrained_model.v_pred,
         weight_dtype=weight_dtype,
-        clip_skip=config.pretrained_model.clip_skip,
         lora_spec=spec,
         attn_backend="flash" if use_flash else "xla",
         device=device,
         checkpoint_unet=config.train.checkpoint_unet,
     )
-    bundle = ModelBundle(
-        unet=models.unet,
-        scheduler=models.scheduler,
-        spec=spec,
-        device=device,
-        encode_fn=make_encode_fn(models.tokenizer, models.text_encoder, device),
-    )
-    del models  # train() frees the text encoder once the prompts are encoded
+    model = config.pretrained_model
+    if xl:
+        models = load_models_xl(model.name_or_path, **load_kw)
+    else:
+        models = load_models(model.name_or_path, v2=model.v2, v_pred=model.v_pred,
+                             clip_skip=model.clip_skip, **load_kw)
+    bundle = ModelBundle.from_loaded(models, spec, device)
+    del models  # train() frees the text encoder(s) once the prompts are encoded
     check_trainable_params(bundle.unet)
     check_frozen_params(bundle.unet)
     return train(config, prompts, bundle, on_step=on_step)

@@ -168,16 +168,24 @@ def test_packed_gradients_match_jax(b, n, nk, heads, d):
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
-def test_supports_packed_matches_jax(itemsize):
+def test_supports_packed_matches_jax(itemsize, monkeypatch):
+    """The port's packed rule is the JAX package's with the VMEM arithmetic
+    (its q-block picker, a TPU limit) taken out: it admits every shape JAX
+    admits at either itemsize, and the ones JAX's budget alone refuses."""
     grid = [(nq, nk, c, heads) for nq in (64, 256, 300, 1024, 4096, 8192, 16384)
             for nk in (77, 256, 300, 1024, 4096, 8192) for c, heads in
             ((320, 5), (320, 8), (640, 10), (1280, 20), (1280, 8), (96, 7))]
-    got = [fa.supports_packed(*g, itemsize) for g in grid]
+    got = [fa.supports_packed(*g) for g in grid]
+    within_vmem = [jax_fa.supports_packed(*g, itemsize) for g in grid]
+    assert all(ok for ok, jax_ok in zip(got, within_vmem) if jax_ok)
+    assert got != within_vmem
+    monkeypatch.setattr(jax_fa, "_pick_q_block_packed", lambda *a: 128)
     assert got == [jax_fa.supports_packed(*g, itemsize) for g in grid]
     assert any(got) and not all(got)
-    # every self-attention of SD1.5 and SD2.1 at 512 px takes the packed route
+    # every self-attention of SD1.5 and SD2.1 at 512 px and of SDXL at 1024
+    # px takes the packed route
     for n, c, heads in ((4096, 320, 5), (1024, 640, 10), (256, 1280, 20), (4096, 320, 8),
-                        (1024, 640, 8), (256, 1280, 8)):
+                        (1024, 640, 8), (256, 1280, 8), (4096, 640, 10), (1024, 1280, 20)):
         assert fa.supports_packed(n, n, c, heads)
 
 

@@ -165,12 +165,14 @@ def test_stochastic_scheduler_draws_its_noise(models, monkeypatch):
 
 
 def test_sdxl_models_are_refused(models, monkeypatch):
+    """SDXL generates (tests/test_torch_port_sdxl_infer.py);
+    what it still refuses, as the JAX package does, is `positive_embeds`
+    (a textual-inversion embedding of SD1.x/2.x), before any work."""
     import dataclasses
 
     pm = models["port"]
-    xl = dataclasses.replace(pm.unet_config, addition_embed_type="text_time")
-    monkeypatch.setattr(pm, "unet_config", xl)
-    with pytest.raises(NotImplementedError, match="SDXL"):
-        infer.generate_latents(pm, "van gogh", "", GEN)
+    xl = dataclasses.replace(pm.unet.cfg, addition_embed_type="text_time")
+    monkeypatch.setattr(pm.unet, "cfg", xl)
+    assert pm.is_xl
     with pytest.raises(ValueError, match="positive_embeds"):
         infer.generate_latents(pm, "van gogh", "", GEN, positive_embeds=torch.zeros(1, 77, 32))

@@ -77,6 +77,12 @@ def test_kernels_match_plain(device, nq, nk, d):
 FWD_CORE_SHAPES = [(bh, nq, nk, d) for d in (40, 64, 80, 160)
                    for bh, nq, nk in ((1, 300, 300), (2, 384, 77), (140, 384, 300),
                                       (3, 1024, 1024))]
+# SDXL at 1024 px (every head 64 wide): levels 1 and 2 (4096 and 1024
+# tokens) at the inner loop's 2B (10 and 20 heads), the references' 3B and
+# the target's B, B = 1
+XL_FWD_SHAPES = [(20, 4096, 4096, 64), (40, 1024, 1024, 64), (30, 4096, 4096, 64),
+                 (60, 1024, 1024, 64), (10, 4096, 4096, 64), (20, 1024, 1024, 64)]
+FWD_CORE_SHAPES += XL_FWD_SHAPES
 
 
 @pytest.mark.parametrize("bh,nq,nk,d", FWD_CORE_SHAPES)
@@ -101,6 +107,7 @@ def test_fwd_core_matches_plain(device, bh, nq, nk, d):
 BWD_SHAPES = [(bh, nq, nk, d) for d in (40, 64, 80, 160)
               for bh, nq, nk in ((1, 300, 300), (2, 384, 77), (140, 384, 300),
                                  (3, 1024, 1024))]
+BWD_SHAPES += [(10, 4096, 4096, 64), (20, 1024, 1024, 64)]  # SDXL's target pass, B = 1
 
 
 @pytest.mark.parametrize("bh,nq,nk,d", BWD_SHAPES)
@@ -125,6 +132,39 @@ def test_bwd_pair_matches_plain_and_repeats_bitwise(device, bh, nq, nk, d):
         ref = ref.float()
         assert (got.float() - ref).abs().max() <= RTOL_GRAD * ref.abs().max()
         assert torch.equal(got, again)  # no atomics: two calls give the same bits
+
+
+DROPPED = 64  # the controls' missing key tile (O, dQ) or query rows (dK, dV)
+
+
+@pytest.mark.parametrize("bh,n", [(20, 4096), (40, 1024), (10, 4096), (20, 1024)])
+def test_xl_shapes_limits_fail_their_controls(device, bh, n):
+    """SDXL's level-1 and level-2 shapes (D 64) at the inner 2B and the
+    target's B: O, dQ, dK and dV within their limits, and each limit failed
+    by the plain version without a key tile (O, dQ) or query rows (dK, dV)."""
+    d = 64
+    gen = torch.Generator(device).manual_seed(21)
+    q, k, v, g = (_rand(gen, (bh, n, d), device) for _ in range(4))
+    scale = d**-0.5
+    o, _ = fa.attn_fwd(q, k, v, scale)
+    o_ref, lse = fa.attn_fwd_plain(q, k, v, scale)
+    o_control, _ = fa.attn_fwd_plain(q, k[:, :-DROPPED], v[:, :-DROPPED], scale)
+    limit = min(ATOL_O, RTOL_O * o_ref.float().abs().max().item())
+    assert (o.float() - o_ref.float()).abs().max() <= limit
+    assert (o_control.float() - o_ref.float()).abs().max() > limit
+    delta = (g.float() * o_ref.float()).sum(-1)
+    got = (fa.attn_bwd_dq(q, k, v, g, lse, delta, scale),
+           *fa.attn_bwd_dkv(q, k, v, g, lse, delta, scale))
+    refs = (fa.attn_bwd_dq_plain(q, k, v, g, lse, delta, scale),
+            *fa.attn_bwd_dkv_plain(q, k, v, g, lse, delta, scale))
+    kept = slice(0, n - DROPPED)
+    controls = (fa.attn_bwd_dq_plain(q, k[:, :-DROPPED], v[:, :-DROPPED], g, lse, delta, scale),
+                *fa.attn_bwd_dkv_plain(q[:, kept], k, v, g[:, kept], lse[:, kept],
+                                       delta[:, kept], scale))
+    for got_, ref, control in zip(got, refs, controls):
+        grad_limit = RTOL_GRAD * ref.float().abs().max()
+        assert (got_.float() - ref.float()).abs().max() <= grad_limit
+        assert (control.float() - ref.float()).abs().max() > grad_limit
 
 
 def test_autograd_matches_plain_autograd_at_sd21_level0(device):
@@ -170,7 +210,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(device):
         fa.attn_fwd(q, q, q, 0.1)  # off the 16-byte boundary that TMA needs
 
 
-@pytest.mark.parametrize("b,nq,nk,heads,d", [(2, 256, 256, 5, 64), (2, 300, 300, 8, 40),
+@pytest.mark.parametrize("b,nq,nk,heads,d", [(2, 4096, 4096, 10, 64), (2, 1024, 1024, 20, 64),
+                                             (2, 256, 256, 5, 64), (2, 300, 300, 8, 40),
                                              (1, 256, 300, 2, 80), (1, 256, 256, 4, 160),
                                              (1, 1024, 77, 10, 64), (2, 384, 300, 5, 64),
                                              (3, 300, 77, 8, 40), (1, 1024, 1024, 8, 80),
@@ -267,8 +308,11 @@ CONV_CORE_SHAPES = [
     (2, 1280, 16, 16, 1280), (2, 1280, 32, 32, 1280), (2, 640, 64, 64, 640),
     (3, 640, 64, 64, 640), (2, 192, 16, 16, 320), (2, 320, 12, 12, 320),
     (1, 128, 4, 4, 128), (3, 192, 12, 12, 128), (1, 320, 8, 8, 320),
+    # SDXL at 1024 px: level 0 (W 128) and the widest level-2 up conv
+    (2, 320, 128, 128, 320), (2, 2560, 32, 32, 1280),
 ]
-CONV_DX_CORE_SHAPES = [(1, 1280, 16, 16, 1280), (1, 1280, 32, 32, 1280), (1, 640, 64, 64, 640)]
+CONV_DX_CORE_SHAPES = [(1, 1280, 16, 16, 1280), (1, 1280, 32, 32, 1280), (1, 640, 64, 64, 640),
+                       (1, 320, 128, 128, 320)]
 GNCONV_CORE_SHAPES = [
     (2, 320, 64, 64, 320), (2, 960, 64, 64, 320), (2, 640, 64, 64, 320),
     (2, 320, 32, 32, 640), (2, 640, 32, 32, 640), (2, 1920, 32, 32, 640),
@@ -277,6 +321,10 @@ GNCONV_CORE_SHAPES = [
     (2, 1280, 8, 8, 1280), (2, 2560, 8, 8, 1280), (3, 320, 64, 64, 320),
     (1, 320, 64, 64, 320), (2, 320, 12, 12, 320), (1, 128, 4, 4, 128),
     (2, 192, 16, 16, 320), (3, 640, 12, 12, 640),
+    # SDXL's resnet convs at 1024 px: level 0 (W 128, its up block's 960 and
+    # 640 inputs), level 1 and level 2 (the up block's 2560)
+    (2, 320, 128, 128, 320), (2, 960, 128, 128, 320), (2, 640, 128, 128, 320),
+    (2, 640, 64, 64, 640), (2, 2560, 32, 32, 1280),
 ]
 
 
@@ -404,6 +452,9 @@ GEGLU_CORE_SHAPES = [
     (1, 320, 1280, 0), (100, 320, 1280, 4), (8191, 320, 1280, 1), (100, 40, 24, 3),
     (512, 72, 640, 0), (1000, 328, 1280, 16), (256, 320, 8, 4), (300, 320, 1288, 0),
     (128, 1280, 5120, 0), (128, 1280, 5120, 4), (64, 640, 2560, 16),
+    # SDXL at 1024 px: levels 1 and 2 at the inner loop's 2B (K 640 and
+    # 1280, N 2 x 2560 and 2 x 5120) and the target's rank-4 LoRA at B
+    (8192, 640, 2560, 0), (2048, 1280, 5120, 0), (4096, 640, 2560, 4), (1024, 1280, 5120, 4),
 ]
 
 
@@ -462,6 +513,10 @@ GN_CORE_SHAPES = [
     (2, 960, 64, 64, 1e-5, True), (1, 2560, 64, 64, 1e-6, False),
     (2, 32, 16, 16, 1e-6, True), (1, 32, 7, 9, 1e-6, False),
     (1, 640, 32, 32, 1e-6, True), (1, 640, 32, 32, 1e-6, False),
+    # SDXL at 1024 px: conv_norm_out (groups of 10 x 128^2 = 163,840, the
+    # re-reading route) and the level-1 and level-2 transformer norms
+    (2, 320, 128, 128, 1e-5, True), (2, 640, 64, 64, 1e-6, False),
+    (2, 1280, 32, 32, 1e-6, False),
 ]
 
 
