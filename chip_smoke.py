@@ -26,7 +26,9 @@ Phases, each printing its result on a line of its own:
   4. fused_kernels — the same for the fused configuration's kernels (3x3
                conv and its dx, GroupNorm-SiLU-conv, GroupNorm, GEGLU with
                and without the LoRA delta) at the SD1.5 512 px shapes (and
-               the conv core at W 12, W 4 and a ragged Cin), each limit
+               the conv core at W 12, W 4 and a ragged Cin; conv3x3 also at
+               every resnet conv the gnconv gate refuses on the knobs-on
+               SD1.5 and SDXL paths, forward and dx), each limit
                beside a control that must fail it, with F.conv2d and
                F.group_norm as the library's calls (no single PyTorch call
                computes GroupNorm-SiLU-conv or GEGLU; F.conv2d on the
@@ -50,8 +52,10 @@ Phases, each printing its result on a line of its own:
                512 px, batch 1, the van-gogh erase prompt), with every
                kernel's launch count checked against the schedule: once on
                the default path (knobs off: the flash kernels only), once
-               with the knobs on (the six kernels of that path: no conv3x3,
-               the upsamplers run phase convolutions), and once with the
+               with the knobs on (the seven kernels of that path: conv3x3
+               on the resnet convs above 16 x 16, which the gnconv gate
+               refuses, none on the upsamplers, which run phase
+               convolutions), and once with the
                knobs on for a rank-4 c3lier LoRA (`train_fused_c3lier`: LoRA
                on every resnet and upsampler conv, so conv3x3 forward and dx,
                and no gnconv3x3; `fused_launches`);
@@ -108,7 +112,21 @@ Phases, each printing its result on a line of its own:
                attention, the knobs on vs off (their launches at SDXL's
                shapes), packed bitwise the 3-d route; the trained LoRA's A/B
                at 1024 px, 20 DDIM steps, with exact launches, and a
-               full-width SDXL VAE decode to uint8 (1, 1024, 1024, 3).
+               full-width SDXL VAE decode to uint8 (1, 1024, 1024, 3);
+ 13. ti      — textual-inversion erasure, cuDNN deterministic: a random
+               full-width SD1.5 diffusers checkpoint (fp16, CLIP-L, the
+               synthetic tokenizer); examples/ti_config.yaml +
+               prompts.yaml (van gogh, 512 px, batch 2, bf16, DDIM, AdamW at
+               lr 5e-3, seed 0) through `train_ti.main()`, 3 iterations with
+               a save each (finite losses, exact flash launches: every
+               self-attention but the first runs the backward pair, the
+               embedding moved, every saved `emb_params` (2, 768) read back
+               equal); one step's embedding gradient through the kernels
+               against plain attention, also under LECO_FLASH_CROSS=1, each
+               with a control, and checkpoint_unet on against off; the A/B at
+               512 px, 20 DDIM steps (the identity splice bitwise the plain
+               prompt, the trained embedding moving the latents); the native
+               BPE engine loaded, its ids the Python merge loop's.
 The knobs are the JAX package's: LECO_CONV_BACKEND=gemm, LECO_RESNET_FUSED=1,
 LECO_TPU_FUSED_GN=1, LECO_GEGLU=fused, and LECO_FLASH_PACKED=1. Then a JSON
 line with every kernel's launches, error, times (kernel, plain, library;
@@ -245,42 +263,85 @@ FUSED_KNOBS = {"LECO_CONV_BACKEND": "gemm", "LECO_RESNET_FUSED": "1",
 # bf16 once; a bf16 ulp is 2^-8 of a value)
 RTOL_FUSED = 1e-2
 # Launches per UNet forward at SD1.5 512 px, rank-4 lierla, all knobs on
-# (`fused_launches`): 22 resnets x 2 convs through gnconv3x3 (none has a
-# LoRA branch); 16 transformer norms plus conv_norm_out (the resnet norms
-# become affines); 16 GEGLUs; no conv3x3: the 3 upsamplers run as phase
-# convolutions (no LoRA branch on them), as in the JAX package, so the
-# backward runs none either. A c3lier run keeps conv3x3 on a checked path.
-# SD1.5's UNet: resnets, upsamplers, transformer blocks (one norm and one
-# GEGLU each)
-SD15_RESNETS, SD15_UPSAMPLERS, SD15_TRANSFORMERS = 22, 3, 16
+# (`fused_launches`): of the 44 resnet convs (none has a LoRA branch) the 24
+# at 16 x 16 and below take gnconv3x3, the 20 above (`gn_conv.MAX_FUSED_SIDE`)
+# the GroupNorm kernel and conv3x3, and 18 of those run conv3x3's dx on a
+# target pass (all but the first resnet's two convs, before any LoRA); 16
+# transformer norms plus conv_norm_out; 16 GEGLUs; the 3 upsamplers run as
+# phase convolutions (no LoRA branch on them), as in the JAX package. A
+# c3lier run keeps conv3x3 on every resnet and upsampler conv.
+# SD1.5's UNet: resnet convs (gnconv3x3, refused, refused with dx),
+# upsamplers, transformer blocks (one norm and one GEGLU each)
+SD15_CONVS = (24, 20, 18)
+SD15_UPSAMPLERS, SD15_TRANSFORMERS = 3, 16
 
 
-def fused_launches(network: str, forwards: int, targets: int, resnets: int = SD15_RESNETS,
+def unet_convs(model: str, resolution: int) -> list:
+    """(Cin, H, W, Cout, needs_dx) of every resnet 3x3 conv of one forward of
+    "sd15" or "sdxl" at `resolution` px (`time_gates.resnet_convs`)."""
+    from leco_tpu_torch.kernels.time_gates import resnet_convs
+    from leco_tpu_torch.models.unet import sd15_config, sdxl_config
+
+    config = {"sd15": sd15_config, "sdxl": sdxl_config}[model]()
+    return resnet_convs(config, resolution, resolution)
+
+
+def refused_convs(model: str, resolution: int) -> list:
+    """`unet_convs` whose shape the gnconv gate refuses (bf16 on CUDA)."""
+    import torch
+
+    from leco_tpu_torch.ops import gn_conv
+
+    return [c for c in unet_convs(model, resolution) if not gn_conv.supports(
+        (1, c[0], c[1], c[2]), c[3], torch.bfloat16, torch.device("cuda"))]
+
+
+def fused_launches(network: str, forwards: int, targets: int, convs=SD15_CONVS,
                    upsamplers: int = SD15_UPSAMPLERS,
                    transformers: int = SD15_TRANSFORMERS, blocks: Optional[int] = None) -> dict:
     """The fused kernels' launches in `forwards` UNet forwards with every
     knob on, `targets` of them the differentiated target pass with its
-    backward. lierla: each resnet conv takes gnconv3x3 (its GroupNorm
-    collapsed to an affine), no conv3x3. c3lier: gnconv3x3 fuses no conv
-    the spec matches (the JAX package, models/unet.py:212-220), so every
-    resnet conv takes conv3x3 after a GroupNorm kernel on every pass; the
-    upsamplers take conv3x3 on the target pass only (with the LoRA branch
-    on the 2x upsample is materialised; folded and off passes run the
+    backward; `convs` counts the model's resnet convs a forward as (through
+    gnconv3x3, refused by its gate, refused and needing dx). lierla: a
+    resnet conv the gnconv gate admits takes gnconv3x3 (its GroupNorm
+    collapsed to an affine); one it refuses takes the GroupNorm kernel, then
+    conv3x3, whose dx runs on the target pass where the conv's input needs a
+    gradient; the upsamplers take no conv3x3. c3lier: gnconv3x3 fuses no
+    conv the spec matches (the JAX package, models/unet.py:212-242), so
+    every resnet conv takes conv3x3 after a GroupNorm kernel on every pass;
+    the upsamplers take conv3x3 on the target pass only (with the LoRA
+    branch on the 2x upsample is materialised; folded and off passes run the
     phase convolutions); the backward runs conv3x3 for the dx of every
     conv3x3 of the target pass but the first resnet's conv1, whose input
     (conv_in's output) needs no gradient. `transformers` counts the
     Transformer2DModels (one GroupNorm each), `blocks` their transformer
     blocks (one GEGLU each; by default one a model, as in SD1.x/2.x)."""
     blocks = transformers if blocks is None else blocks
+    fused, refused, refused_dx = convs
+    n = fused + refused
     if network == "lierla":
-        return {"gnconv3x3": 2 * resnets * forwards, "group_norm": (transformers + 1) * forwards,
-                "geglu": blocks * forwards, "conv3x3": 0}
+        return {"gnconv3x3": fused * forwards, "group_norm": (transformers + 1 + refused) * forwards,
+                "geglu": blocks * forwards, "conv3x3": refused * forwards + refused_dx * targets}
     if network == "c3lier":
-        return {"gnconv3x3": 0, "group_norm": (2 * resnets + transformers + 1) * forwards,
+        return {"gnconv3x3": 0, "group_norm": (n + transformers + 1) * forwards,
                 "geglu": blocks * forwards,
-                "conv3x3": 2 * resnets * forwards + (upsamplers + 2 * resnets - 1 + upsamplers)
-                * targets}
+                "conv3x3": n * forwards + (upsamplers + n - 1 + upsamplers) * targets}
     raise ValueError(network)
+
+
+def conv_path_shapes() -> tuple[list, list]:
+    """(B, Cin, H, W, Cout) of conv3x3 on the lierla knobs-on paths, forward
+    and dx: SD1.5's refused resnet convs at the inner loop's B 2 and the
+    references' B 3, their dx at the target's B 1 (of the gradient's
+    channels into the forward's input channels), SDXL's at B 2."""
+    sd15 = refused_convs("sd15", SD15_RESOLUTION)
+    forward = sorted({(b, cin, h, w, cout) for cin, h, w, cout, _ in sd15 for b in (2, 3)}
+                     | {(2, cin, h, w, cout)
+                        for cin, h, w, cout, _ in refused_convs("sdxl", XL_RESOLUTION)})
+    dx = sorted({(1, cout, h, w, cin) for cin, h, w, cout, needs_dx in sd15 if needs_dx})
+    return forward, dx
+
+
 # (B, Cin, H, W, Cout): the upsampler convs at B = 2 (inner loop), the
 # level-0 one at the references' B = 3; dx runs at the target's B = 1
 CONV_SHAPES = [(2, 1280, 16, 16, 1280), (2, 1280, 32, 32, 1280), (2, 640, 64, 64, 640),
@@ -316,7 +377,7 @@ GEGLU_SHAPES = [
 # the most frequent shape on the path of each fused kernel, where it is timed
 FUSED_TIMED = {
     "conv3x3": (2, 640, 64, 64, 640),
-    "gnconv3x3": (2, 320, 64, 64, 320),
+    "gnconv3x3": (2, 1280, 8, 8, 1280),
     "group_norm": (2, 320, 64, 64, 1e-6, False),
     "geglu": (2 * 4096, 320, 1280, 0),
 }
@@ -379,10 +440,24 @@ XL_RESOLUTION = 1024
 # SDXL at 1024 px: self-attention over 4096 tokens (level 1: 2 x 2 down, 3 x 2
 # up) and 1024 (level 2: 2 x 10 down, 3 x 10 up, 10 in the mid block)
 XL_FLASH_PER_FORWARD = 70
-# SDXL's UNet: 17 resnets, 2 upsamplers, 11 Transformer2DModels of 70 blocks
-XL_RESNETS, XL_UPSAMPLERS, XL_TRANSFORMERS = 17, 2, 11
+# SDXL's UNet at 1024 px: 34 resnet convs, all above 16 x 16 (none through
+# gnconv3x3; 28 need dx), 2 upsamplers, 11 Transformer2DModels of 70 blocks
+XL_CONVS = (0, 34, 28)
+XL_UPSAMPLERS, XL_TRANSFORMERS = 2, 11
 XL_INFER_STEPS = 20
 XL_PROMPT = "van gogh"
+# phase ti: examples/ti_config.yaml + prompts.yaml (SD1.5, van gogh, 512 px,
+# batch 2) on a random full-width SD1.5 diffusers checkpoint, cut to
+# TI_ITERATIONS iterations with a save every iteration; the A/B at the
+# generation defaults (512 px, TI_INFER_STEPS DDIM steps)
+TI_CHECKPOINT = Path("sd15") / "diffusers"
+TI_ITERATIONS = 3
+TI_INFER_STEPS = 20
+TI_PROMPT = "van gogh"
+# every self-attention but the first runs the backward pair on the target
+# pass: the first one's inputs need no gradient (the trained embedding
+# enters at the cross-attention after it)
+TI_FLASH_BACKWARDS = FLASH_ATTENTIONS_PER_FORWARD - 1
 
 
 def wrappers() -> dict:
@@ -801,9 +876,12 @@ def phase_fused_kernels(device) -> dict:
         print(json.dumps(row), flush=True)
         return row
 
-    for b, cin, h, w, cout in CONV_SHAPES + CONV_DX_SHAPES:
+    path_forward, path_dx = conv_path_shapes()
+    dx_shapes = CONV_DX_SHAPES + [s for s in path_dx if s not in CONV_DX_SHAPES]
+    forward_shapes = CONV_SHAPES + [s for s in path_forward if s not in CONV_SHAPES]
+    for b, cin, h, w, cout in forward_shapes + dx_shapes:
         x = bf16((b, cin, h, w))
-        dx = (b, cin, h, w, cout) in CONV_DX_SHAPES
+        dx = (b, cin, h, w, cout) in dx_shapes
         if dx:  # dx: the kernel on the flipped weights of a (Cin, Cout) forward conv
             wt, bias = bf16((cin, cout, 3, 3), (9 * cin) ** -0.5), None
         else:
@@ -1278,22 +1356,22 @@ def unreal_config(ckpt: Path, save_dir: Path) -> dict:
     return config
 
 
-def run_cli(config: dict, config_path: Path, on_step=None, xl: bool = False) -> dict:
-    """`main()` of the port's CLI (`train_lora`, or with `xl` `train_lora_xl`)
-    on `config` with every launch count at 0 before it -> {"result",
-    "launches", "seconds", "stamps", "load_end", "peak_mem_gb"}. `wandb` is
-    made unimportable: `use_wandb: true` then takes the JAX trainer's "not
-    installed" path and nothing reaches a network."""
+def run_cli(config: dict, config_path: Path, on_step=None, cli: str = "train_lora") -> dict:
+    """`main()` of the port's CLI `leco_tpu_torch.<cli>` (`train_lora`,
+    `train_lora_xl` or `train_ti`) on `config` with every launch count at 0
+    before it -> {"result", "launches", "seconds", "stamps", "load_end",
+    "peak_mem_gb"}. `wandb` is made unimportable: `use_wandb: true` then
+    takes the JAX trainer's "not installed" path and nothing reaches a
+    network."""
+    import importlib
+
     import torch
 
     from leco_tpu_torch.models import loader
     from leco_tpu_torch.train_lora import parse_args
 
-    if xl:
-        from leco_tpu_torch.train_lora_xl import main as cli_main
-    else:
-        from leco_tpu_torch.train_lora import main as cli_main
-    load_name = "load_models_xl" if xl else "load_models"
+    cli_main = importlib.import_module(f"leco_tpu_torch.{cli}").main
+    load_name = "load_models_xl" if cli == "train_lora_xl" else "load_models"
     write_config(config, config_path)
     stamps, load_end = [], []
     real_load = getattr(loader, load_name)
@@ -1985,7 +2063,7 @@ def phase_xl(device, out_dir: Path) -> dict:
         config["train"].update(iterations=XL_ITERATIONS, seed=0)
         save_dir = out_dir / "xl_out"
         config["save"]["path"] = str(save_dir)
-        run = run_cli(config, out_dir / "config_xl.yaml", xl=True)
+        run = run_cli(config, out_dir / "config_xl.yaml", cli="train_lora_xl")
         result, counts = run["result"], run["launches"]
         losses = result["losses"]
         check(len(losses) == XL_ITERATIONS and all(math.isfinite(v) for v in losses),
@@ -2091,7 +2169,7 @@ def phase_xl(device, out_dir: Path) -> dict:
         check(flash_counts == flash_launches(1, 0, XL_FLASH_PER_FORWARD),
               f"xl forward launches {flash_counts}")
         want = {**flash_launches(1, 0, XL_FLASH_PER_FORWARD),
-                **fused_launches("lierla", 1, 0, XL_RESNETS, XL_UPSAMPLERS, XL_TRANSFORMERS,
+                **fused_launches("lierla", 1, 0, XL_CONVS, XL_UPSAMPLERS, XL_TRANSFORMERS,
                                  XL_FLASH_PER_FORWARD)}
         check(fused_counts == want, f"xl knobs-on launches {fused_counts} != {want}")
         want = {**{n: 0 for n in KERNELS}, PACKED: XL_FLASH_PER_FORWARD}
@@ -2145,6 +2223,221 @@ def phase_xl(device, out_dir: Path) -> dict:
           f"{XL_INFER_STEPS} steps, CFG batch 2), VAE decode "
           f"{out['infer']['vae_decode_ms']:.1f} ms", flush=True)
     return {**out, "nvidia_smi": smi}
+
+
+def ti_step(bundle, handle, pack, seed: int) -> dict:
+    """One textual-inversion step at STEP_TIMESTEPS_TO on latents from
+    `seed`, its optimizer at lr 0 (the embedding stays) -> loss, the
+    embedding's gradient, launches, peak memory, seconds."""
+    import torch
+
+    from leco_tpu_torch.train import textual_inversion as ti
+
+    ids, slots, emb0 = ti.init_prompt_embedding(handle, TI_PROMPT)
+    emb = torch.nn.Parameter(emb0.clone())
+    step = ti.make_ti_train_step(bundle, handle, ids, slots, torch.optim.SGD([emb], lr=0.0), 50)
+    gen = torch.Generator(bundle.device)
+    gen.manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss = step(emb, pack, 1.0, 1.0, STEP_TIMESTEPS_TO, height=SD15_RESOLUTION,
+                width=SD15_RESOLUTION, generator=gen)
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "grads": {"emb": emb.grad.detach().float().clone()},
+            "launches": launches(), "seconds": time.perf_counter() - t0,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_ti(device, out_dir: Path) -> dict:
+    """Textual-inversion erasure at full width, cuDNN deterministic:
+    1. a random full-width SD1.5 diffusers checkpoint (fp16, CLIP-L, the
+       synthetic tokenizer); examples/ti_config.yaml + prompts.yaml (van
+       gogh, 512 px, batch 2, bf16, DDIM, AdamW at lr 5e-3, seed 0) through
+       `train_ti.main()`, TI_ITERATIONS iterations with a save every
+       iteration: finite losses, exact flash launches, the embedding moved,
+       every saved `emb_params` read back equal to what was saved;
+    2. one step's embedding gradient through the kernels against plain
+       attention (RTOL_GRAD, a control on other latents), the same under
+       LECO_FLASH_CROSS=1 (the cross-attention K/V carry the gradient into
+       the text side through the backward pair), and checkpoint_unet on
+       against off;
+    3. the A/B at 512 px, TI_INFER_STEPS DDIM steps: the identity splice
+       equal to the plain prompt, the trained embedding moving the latents;
+    4. the native BPE engine: loaded, its ids the Python loop's."""
+    import numpy as np
+    import torch
+
+    from leco_tpu_torch import infer, testing
+    from leco_tpu_torch.models import loader
+    from leco_tpu_torch.models.clip import sd1_text_config
+    from leco_tpu_torch.models.tokenizer import CLIPTokenizer
+    from leco_tpu_torch.models.unet import sd15_config
+    from leco_tpu_torch.prompts import load_prompts_from_yaml, make_encode_fn
+    from leco_tpu_torch.train import textual_inversion as ti
+    from leco_tpu_torch.train import trainer
+    from leco_tpu_torch.utils import yaml_subset
+
+    saved_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out: dict = {}
+    try:
+        # ---- 1. the recipe through the CLI
+        t0 = time.perf_counter()
+        ckpt = testing.write_diffusers_checkpoint(out_dir / TI_CHECKPOINT, sd15_config(),
+                                                  sd1_text_config(), seed=0,
+                                                  dtype=torch.float16, device=device)
+        out["write_seconds"] = time.perf_counter() - t0
+        config = yaml_subset.load(REPO / "examples" / "ti_config.yaml")
+        config["prompts_file"] = str(REPO / "examples" / "prompts.yaml")
+        config["pretrained_model"]["name_or_path"] = str(ckpt)
+        config["train"]["iterations"] = TI_ITERATIONS
+        config["save"].update(path=str(out_dir / "ti"), per_steps=1)
+        writes = []
+        real_save = ti.save_embedding
+
+        def recorded_save(file, emb, *args, **kwargs):
+            writes.append((Path(file), emb.detach().cpu().clone()))
+            real_save(file, emb, *args, **kwargs)
+
+        ti.save_embedding = recorded_save
+        try:
+            run = run_cli(config, out_dir / "ti_config.yaml", cli="train_ti")
+        finally:
+            ti.save_embedding = real_save
+        result, counts = run["result"], run["launches"]
+        losses = result["losses"]
+        check(len(losses) == TI_ITERATIONS and all(np.isfinite(losses)), f"ti losses {losses}")
+        records = [json.loads(ln) for ln in (out_dir / "ti" / "metrics.jsonl").read_text()
+                   .splitlines()]
+        tsto = [r["timesteps_to"] for r in records]
+        want = flash_launches(sum(t + 2 for t in tsto), 0)
+        want.update(attn_bwd_dq=TI_FLASH_BACKWARDS * TI_ITERATIONS,
+                    attn_bwd_dkv=TI_FLASH_BACKWARDS * TI_ITERATIONS)
+        check(counts == want, f"ti launches {counts} != {want}")
+        names = [p.name for p in result["saved"]]
+        check(names == ["van_gogh_ti_1steps_ti.safetensors", "van_gogh_ti_ti.safetensors"],
+              f"ti saves {names}")
+        check([p for p, _ in writes] == result["saved"], "ti: saves not recorded")
+        for path, emb in writes:
+            got = ti.load_embedding(path)
+            check(tuple(got.shape) == (2, 768) and torch.equal(got, emb.to(got.dtype)),
+                  f"{path.name} does not read back what was saved")
+        check(torch.equal(writes[-1][1], result["embedding"]), "the last save is not the result")
+        per_iter = iteration_seconds(run)
+        print(f"ti: seconds per iteration {json.dumps(per_iter)} (timesteps_to {tsto}), "
+              f"peak {run['peak_mem_gb']:.2f} GiB, losses {losses}", flush=True)
+        out["train"] = {"losses": losses, "timesteps_to": tsto, "launches": counts,
+                        "seconds": run["seconds"],
+                        "load_seconds": run["load_end"][0] - run["t0"],
+                        "seconds_per_iteration": per_iter, "peak_mem_gb": run["peak_mem_gb"]}
+        trained = result["embedding"]
+        del run, result
+
+        # ---- 2. one step's embedding gradient: kernels, plain, the knobs
+        models = loader.load_models(str(ckpt), weight_dtype=torch.bfloat16,
+                                    attn_backend="flash", device=device)
+        handle = ti.TextEncoderHandle(model=models.text_encoder, tokenizer=models.tokenizer,
+                                      device=device)
+        bundle = trainer.ModelBundle(unet=models.unet, scheduler=models.scheduler, spec=None,
+                                     device=device)
+        (pair,) = trainer.encode_prompt_pairs(
+            load_prompts_from_yaml(REPO / "examples" / "prompts.yaml"),
+            make_encode_fn(models.tokenizer, models.text_encoder, device))
+        pack = {"uncond_embeds": pair.unconditional,
+                "ref_embeds": trainer.build_pack(pair)["ref_embeds"]}
+        ids, slots, emb0 = ti.init_prompt_embedding(handle, TI_PROMPT)
+        moved = (trained.to(device) - emb0).abs().max().item()
+        check(moved > 0, "the trained embedding did not move from emb0")
+        steps = {"kernels": ti_step(bundle, handle, pack, 0),
+                 "control": ti_step(bundle, handle, pack, 1)}
+        models.unet.set_attention_backend("xla")
+        steps["plain"] = ti_step(bundle, handle, pack, 0)
+        models.unet.set_attention_backend("flash")
+        with environ({"LECO_FLASH_CROSS": "1"}):
+            steps["cross"] = ti_step(bundle, handle, pack, 0)
+            steps["cross_control"] = ti_step(bundle, handle, pack, 1)
+        models.unet.checkpoint_unet = True
+        steps["checkpoint_unet"] = ti_step(bundle, handle, pack, 0)
+        models.unet.checkpoint_unet = False
+        forwards = STEP_TIMESTEPS_TO + 2
+        want = {"kernels": {**flash_launches(forwards, 0), "attn_bwd_dq": TI_FLASH_BACKWARDS,
+                            "attn_bwd_dkv": TI_FLASH_BACKWARDS},
+                "plain": flash_launches(0, 0)}
+        want["control"] = want["kernels"]
+        # cross-attention at levels 0-2 takes the kernels too, its backward
+        # pair included (its K/V need the gradient)
+        cross = 2 * FLASH_ATTENTIONS_PER_FORWARD
+        want["cross"] = want["cross_control"] = {
+            **flash_launches(forwards, 0, cross), "attn_bwd_dq": cross - 1,
+            "attn_bwd_dkv": cross - 1}
+        # the target pass's blocks run forward again in the backward
+        want["checkpoint_unet"] = {**want["kernels"], "attn_fwd": want["kernels"]["attn_fwd"]
+                                   + FLASH_ATTENTIONS_PER_FORWARD}
+        for name, counts in want.items():
+            check(steps[name]["launches"] == counts,
+                  f"ti step {name}: launches {steps[name]['launches']} != {counts}")
+        grads = {
+            "kernels_vs_plain": grads_gate(steps["kernels"]["grads"], steps["plain"]["grads"],
+                                           steps["control"]["grads"], RTOL_GRAD,
+                                           "ti kernels vs plain"),
+            "cross_vs_plain": grads_gate(steps["cross"]["grads"], steps["plain"]["grads"],
+                                         steps["cross_control"]["grads"], RTOL_GRAD,
+                                         "ti LECO_FLASH_CROSS=1 vs plain"),
+            "checkpoint_unet": grads_gate(steps["checkpoint_unet"]["grads"],
+                                          steps["kernels"]["grads"], steps["control"]["grads"],
+                                          RTOL_CKPT_GRADS, "ti checkpoint_unet on vs off"),
+        }
+        check(steps["checkpoint_unet"]["loss"] == steps["kernels"]["loss"],
+              "ti checkpoint_unet changed the loss")
+        print(f"ti grads: {json.dumps(grads)}; peak {steps['kernels']['peak_mem_gb']:.2f} GiB, "
+              f"{steps['checkpoint_unet']['peak_mem_gb']:.2f} with checkpoint_unet", flush=True)
+        out["step"] = {"grads": grads, "embedding_moved": moved,
+                       **{name: {k: v for k, v in step.items() if k != "grads"}
+                          for name, step in steps.items()}}
+        del steps
+
+        # ---- 3. the A/B: identity splice and trained embedding
+        gen = infer.GenerationConfig(height=SD15_RESOLUTION, width=SD15_RESOLUTION,
+                                     num_inference_steps=TI_INFER_STEPS)
+        with torch.no_grad():
+            identity = ti.encode_spliced(handle, ids, slots, emb0)
+            erased = ti.encode_spliced(handle, ids, slots, trained.to(device))
+        reset_launches()
+        t0 = time.perf_counter()
+        plain = infer.generate_latents(models, TI_PROMPT, "", gen)
+        torch.cuda.synchronize()
+        image_seconds = time.perf_counter() - t0
+        same = infer.generate_latents(models, TI_PROMPT, "", gen, positive_embeds=identity)
+        other = infer.generate_latents(models, TI_PROMPT, "", gen, positive_embeds=erased)
+        counts = launches()
+        want = flash_launches(3 * TI_INFER_STEPS, 0)
+        check(counts == want, f"ti A/B launches {counts} != {want}")
+        check(torch.equal(same, plain), "the identity splice does not generate the plain image")
+        distance = (other - plain).abs().max().item()
+        check(bool(torch.isfinite(other).all()) and distance > 0,
+              f"the trained embedding does not move the latents ({distance})")
+        print(f"ti A/B: identity bitwise the plain prompt, trained embedding moves the "
+              f"latents by {distance:.4f}; {image_seconds:.3f} s per image", flush=True)
+        out["ab"] = {"identity_bitwise": True, "trained_max_abs_move": distance,
+                     "seconds_per_image": image_seconds, "launches": counts}
+        del models, bundle, handle
+
+        # ---- 4. the native BPE engine against the Python merge loop
+        tok_dir = ckpt / "tokenizer"
+        native_tok = CLIPTokenizer.from_pretrained(str(tok_dir))
+        with environ({"LECO_TPU_NATIVE": "0"}):
+            python_tok = CLIPTokenizer.from_pretrained(str(tok_dir))
+        check(native_tok._native is not None, "the native BPE engine did not load")
+        prompts = [TI_PROMPT, "", "cat ears, realistic, real life", "1girl instagram zebra"]
+        check(bool((native_tok(prompts) == python_tok(prompts)).all()),
+              "native BPE ids differ from the Python loop's")
+        print("ti native BPE: loaded, ids equal to the Python merge loop's", flush=True)
+        out["native_bpe"] = {"loaded": True, "ids_equal": True}
+    finally:
+        torch.backends.cudnn.deterministic = saved_deterministic
+    return out
 
 
 def main() -> None:
@@ -2203,16 +2496,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase("xl", phase_xl(device, Path(tmp)))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("ti", phase_ti(device, Path(tmp)))
 
     # each kernel's launches come from the run of the path it is on: the
     # flash kernels from the default path, the fused ones from the knobs-on
-    # lierla path but conv3x3 from the knobs-on c3lier path (lierla runs
-    # none), the packed one from the CLI's LECO_FLASH_PACKED=1 run (each
-    # driven with the counts at 0 just before it)
+    # lierla path, the packed one from the CLI's LECO_FLASH_PACKED=1 run
+    # (each driven with the counts at 0 just before it)
     measured = {**{n: (kernels, train_result) for n in FLASH},
                 PACKED: (kernels, cli["packed"]),
-                **{n: (fused_kernels, train_fused) for n in FUSED},
-                "conv3x3": (fused_kernels, train_c3lier)}
+                **{n: (fused_kernels, train_fused) for n in FUSED}}
     timed_shapes = {**TIMED_SHAPE, PACKED: PACKED_TIMED, **FUSED_TIMED}
     print(json.dumps({"kernels": [
         {

@@ -145,9 +145,15 @@ class CLIPEmbeddings(nn.Module):
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embedding = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, input_embeds=None):
+        """`input_embeds` (B, N, hidden), cast to the token table's dtype,
+        replaces the token lookup."""
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
-        return self.token_embedding(input_ids) + self.position_embedding(pos)[None]
+        if input_embeds is None:
+            tok = self.token_embedding(input_ids)
+        else:
+            tok = input_embeds.to(self.token_embedding.weight.dtype)
+        return tok + self.position_embedding(pos)[None]
 
 
 class CLIPEncoder(nn.Module):
@@ -166,8 +172,11 @@ class CLIPTextTransformer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
-    """forward(input_ids (B, N) int) -> (last_hidden_state, pooled,
-    hidden_states), in the dtype of the parameters."""
+    """forward(input_ids (B, N) int, input_embeds=None) -> (last_hidden_state,
+    pooled, hidden_states), in the dtype of the parameters. `input_embeds`
+    (B, N, hidden) replaces the token-embedding lookup (textual inversion
+    trains vectors in that space), cast to the table's dtype; `input_ids`
+    still gives the EOS pooling position."""
 
     def __init__(self, config: CLIPTextConfig):
         super().__init__()
@@ -178,10 +187,10 @@ class CLIPTextModel(nn.Module):
             if config.projection_dim is not None else None
         )
 
-    def forward(self, input_ids: torch.Tensor):
+    def forward(self, input_ids: torch.Tensor, input_embeds: Optional[torch.Tensor] = None):
         tm = self.text_model
         n = input_ids.shape[1]
-        x = tm.embeddings(input_ids)
+        x = tm.embeddings(input_ids, input_embeds)
         mask = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()[None, None]
         hidden_states = [x]
         for layer in tm.encoder.layers:

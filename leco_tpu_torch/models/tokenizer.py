@@ -10,13 +10,15 @@ truncation=True)` (train_util.py:60-70): lowercase + NFC, byte-level BPE
 with '</w>' end-of-word markers, BOS + tokens[:75] + EOS, padded to 77 with
 the pad token (EOS for SD1/2).
 
-Two differences from the JAX package, neither visible in the ids: the
+One difference from the JAX package, not visible in the ids: the
 pre-tokenizer is a scanner over Unicode categories that splits text as the
 JAX package's `regex` pattern does (letters `\\p{L}+`, one number `\\p{N}`,
 runs of anything else but whitespace, the contractions and the two special
-tokens), since the target machine has no `regex` module; and the merge loop
-is the pure-Python one only (the JAX package's native `bpe.cpp` engine is
-not ported, ROADMAP.md).
+tokens), since the target machine has no `regex` module. The merges run in
+the native engine (`leco_tpu_torch/native/`, the port's copy of the JAX
+package's `bpe.cpp`, built with g++ at first use) unless
+`LECO_TPU_NATIVE=0`, and in the pure-Python loop where the engine is off
+or could not be built; both give the same ids.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ import unicodedata
 from typing import Optional
 
 import numpy as np
+
+from leco_tpu_torch import native
 
 SPECIAL_TOKENS = ("<|startoftext|>", "<|endoftext|>")
 CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
@@ -124,6 +128,11 @@ class CLIPTokenizer:
             pad_token_id if pad_token_id is not None else self.eos_token_id
         )
         self._bpe_cache: dict[str, tuple[str, ...]] = {}
+        self._native = None
+        if native.enabled():
+            lib = native.load_bpe_library()
+            if lib is not None:
+                self._native = native.NativeBPE(lib, vocab, merges)
 
     @classmethod
     def from_pretrained(
@@ -198,6 +207,12 @@ class CLIPTokenizer:
                 ids.append(self.vocab[token])
                 continue
             token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
+            if self._native is not None:
+                try:
+                    ids.extend(self._native.encode_word(token))
+                    continue
+                except KeyError:
+                    pass  # a piece outside the vocabulary: the Python loop raises
             ids.extend(self.vocab[piece] for piece in self._bpe(token))
         return ids
 

@@ -16,7 +16,8 @@ Counterpart of `leco_tpu/ops/gn_conv.py`. The SD resnet half-block is
 
 Not carried over: the v5e `_TUNED` table and `_dispatch`, the lane padding
 of Cin/Cout to multiples of 128, the gridded Cin and the VMEM budget, which
-are all TPU artifacts. `supports()` is the JAX package's shape gate alone.
+are all TPU artifacts. `supports()` is the JAX package's shape gate with
+its split at 16 x 16, which the H100 keeps (`MAX_FUSED_SIDE`).
 
 Backward: autograd through `_conv_reference` (the JAX `_vjp_bwd`); the
 gradient of x through the statistics comes from autograd of
@@ -41,16 +42,29 @@ def enabled() -> bool:
     return os.environ.get("LECO_RESNET_FUSED", "0") == "1"
 
 
+# Above 16 x 16 the knob takes the unfused route, as the JAX gate does
+# (gn_conv.py:179-182; its v5e table admits one such shape). On an H100,
+# with the rest of the fused configuration on (the GroupNorm kernel, then
+# conv3x3), that route beat the kernel route at every resnet conv above 16 x
+# 16 of SD1.5, SD2.1 and SDXL, by 1.2-2.2x (`python -m
+# leco_tpu_torch.kernels.time_gates`, PERF.md section 6). The gate follows
+# that configuration, whose knobs are set together; against cuDNN's conv
+# (every other knob off) the kernel route wins 15 of those 44 shapes.
+MAX_FUSED_SIDE = 16
+
+
 def supports(shape, cout: int, dtype: torch.dtype, device: torch.device) -> bool:
     """The JAX package's hot-shape gate (gn_conv.py:443-455) on an NCHW
-    shape: h, w >= 4 and Cin, Cout >= 128 (the caller has checked that the
-    conv is 3x3/s1/p1 with a bias). On CUDA the kernel is bf16 only."""
+    shape: 4 <= h, w <= `MAX_FUSED_SIDE` and Cin, Cout >= 128 (the caller
+    has checked that the conv is 3x3/s1/p1 with a bias). On CUDA the kernel
+    is bf16 only."""
     if len(shape) != 4:
         return False
     if torch.device(device).type == "cuda" and dtype != torch.bfloat16:
         return False
     _, c, h, w = shape
-    return h >= 4 and w >= 4 and c >= 128 and cout >= 128
+    return (4 <= h <= MAX_FUSED_SIDE and 4 <= w <= MAX_FUSED_SIDE
+            and c >= 128 and cout >= 128)
 
 
 def _bcast(v: torch.Tensor) -> torch.Tensor:

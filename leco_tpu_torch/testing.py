@@ -342,14 +342,17 @@ def write_diffusers_checkpoint(
     unet_config: UNetConfig,
     text_config: CLIPTextConfig,
     seed: int = 0,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device = "cpu",
 ) -> Path:
-    """A diffusers directory with random fp32 weights: `unet/` and
-    `text_encoder/` (config.json + weights) and a synthetic `tokenizer/`."""
+    """A diffusers directory with random weights in `dtype` (drawn on
+    `device`): `unet/` and `text_encoder/` (config.json + weights) and a
+    synthetic `tokenizer/`."""
     root = Path(root)
     _write_component(root / "unet", _unet_config_json(unet_config),
-                     random_unet_state(unet_config, seed, torch.float32))
+                     random_unet_state(unet_config, seed, dtype, device))
     _write_component(root / "text_encoder", _clip_config_json(text_config),
-                     random_clip_state(text_config, seed + 1, torch.float32))
+                     random_clip_state(text_config, seed + 1, dtype, device))
     write_tokenizer(root / "tokenizer")
     return root
 

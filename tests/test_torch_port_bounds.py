@@ -26,8 +26,8 @@ HAND_COUNTED = [
      2 * 640 * 4096 * 2 + 9 * 640 * 640 * 2 + 2 * 640 * 4096 * 2 + 640 * 4,
      roofline.BF16_TENSOR_FLOPS),
     # the same conv; x, w, y bf16, bias and the (B, Cin) affine a, s fp32
-    ("gnconv3x3", (2, 320, 64, 64, 320), 2 * 2 * 64 * 64 * 9 * 320 * 320,
-     2 * 320 * 4096 * 2 + 9 * 320 * 320 * 2 + 2 * 320 * 4096 * 2 + 320 * 4 + 2 * 2 * 320 * 4,
+    ("gnconv3x3", (2, 1280, 8, 8, 1280), 2 * 2 * 8 * 8 * 9 * 1280 * 1280,
+     2 * 1280 * 64 * 2 + 9 * 1280 * 1280 * 2 + 2 * 1280 * 64 * 2 + 1280 * 4 + 2 * 2 * 1280 * 4,
      roofline.BF16_TENSOR_FLOPS),
     # 8 fp32 operations an element, no SiLU; x, y bf16, scale, bias fp32
     ("group_norm", (2, 320, 64, 64, 1e-6, False), 8 * 2 * 320 * 4096,

@@ -155,7 +155,20 @@ MAIN_PATH_WITHOUT_EXTRAS = textwrap.dedent(
             "other:\\n  use_flash_attention: true\\n")
         r = main(parse_args(["--config_file", str(tmp / "config.yaml"), "--device", "cpu"]))
         assert len(r["losses"]) == 1 and (tmp / "out" / "t_last.safetensors").exists(), r
-    print("CLI OK")
+        print("CLI OK")
+
+        # textual inversion through its CLI on the same files, and the utilities
+        from leco_tpu_torch.flush import flush
+        from leco_tpu_torch.train_ti import main as ti_main
+        from leco_tpu_torch.utils.profiling import StepTimer, trace_if
+        timer = StepTimer(warmup=0)
+        with trace_if(str(tmp / "trace")):
+            r = ti_main(parse_args(["--config_file", str(tmp / "config.yaml"), "--device", "cpu"]),
+                        on_step=timer)
+        assert len(r["losses"]) == 1 and (tmp / "out" / "t_ti.safetensors").exists(), r
+        assert (tmp / "trace" / "trace.json").exists() and timer.summary()
+        flush()
+    print("TI CLI OK")
 
     # inference and eval on tiny dirs: generate, decode, PNG, CLIP score
     from leco_tpu_torch import infer
@@ -195,4 +208,4 @@ def test_main_path_runs_with_torch_numpy_einops_only():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "MAIN PATH OK" in proc.stdout and "CLI OK" in proc.stdout
-    assert "INFER OK" in proc.stdout
+    assert "TI CLI OK" in proc.stdout and "INFER OK" in proc.stdout

@@ -41,10 +41,19 @@ def _to_torch(x, w, b, xd, up, tdt=torch.float32):
     return cast(x), cast(w), torch.from_numpy(b), cast(xd), cast(up)
 
 
-def test_gelu_exact_matches_jax_polynomial():
+def test_gelu_exact_matches_jax_polynomial(monkeypatch):
+    """Independent of what earlier tests in the process left behind: both
+    functions read LECO_GELU at call time, so it is unset here, and the JAX
+    side is one program compiled for this test with XLA's fast math pinned
+    off (as JAX runs the gelu, inside a jitted program), not the eager
+    per-operation executables that every test in the process shares."""
+    monkeypatch.delenv("LECO_GELU", raising=False)
     g = np.linspace(-6.0, 6.0, 4001, dtype=np.float32)
     got = geglu.gelu_exact(torch.from_numpy(g)).numpy()
-    want = np.asarray(jgeglu.gelu_exact(jnp.asarray(g)))
+    jg = jnp.asarray(g)
+    jax_gelu = jax.jit(jgeglu.gelu_exact).lower(jg).compile(
+        compiler_options={"xla_cpu_enable_fast_math": False})
+    want = np.asarray(jax_gelu(jg))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
 
 

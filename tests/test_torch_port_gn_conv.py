@@ -157,14 +157,16 @@ def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
 
 
 @pytest.mark.parametrize("shape,cout,dtype,device,want", [
-    ((2, 320, 64, 64), 320, torch.bfloat16, "cuda", True),
+    ((2, 320, 16, 16), 320, torch.bfloat16, "cuda", True),
     ((1, 2560, 8, 8), 1280, torch.bfloat16, "cuda", True),
     ((2, 1280, 4, 4), 1280, torch.bfloat16, "cuda", True),
     ((2, 1280, 2, 2), 1280, torch.bfloat16, "cuda", False),  # h, w < 4
     ((2, 64, 16, 16), 320, torch.bfloat16, "cuda", False),  # thin input
     ((2, 320, 16, 16), 4, torch.bfloat16, "cuda", False),  # thin output
-    ((2, 320, 64, 64), 320, torch.float32, "cuda", False),  # fp32 on CUDA
-    ((2, 320, 64, 64), 320, torch.float32, "cpu", True),  # CPU: the plain version
+    ((2, 320, 16, 16), 320, torch.float32, "cuda", False),  # fp32 on CUDA
+    ((2, 320, 16, 16), 320, torch.float32, "cpu", True),  # CPU: the plain version
+    ((2, 320, 64, 64), 320, torch.bfloat16, "cuda", False),  # above 16 x 16
+    ((2, 320, 64, 64), 320, torch.float32, "cpu", False),  # above 16 x 16
 ])
 def test_supports_is_the_jax_shape_gate(shape, cout, dtype, device, want):
     assert gn_conv.supports(shape, cout, dtype, torch.device(device)) is want

@@ -22,6 +22,7 @@ from leco_tpu.lora import LoRAConv as JaxLoRAConv
 from leco_tpu.models.unet import UNet2DConditionModel as JaxUNet
 from leco_tpu.models.unet import UNetConfig as JaxUNetConfig
 from leco_tpu_torch import lora
+from leco_tpu_torch.kernels.time_gates import resnet_convs
 from leco_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
 from leco_tpu_torch.ops import conv, geglu, gn_conv
 from leco_tpu_torch.ops import group_norm as gn
@@ -159,6 +160,13 @@ def _count_plain_calls(monkeypatch) -> dict:
     return calls
 
 
+def conv_counts(convs, gate) -> tuple[int, int, int]:
+    """`chip_smoke.fused_launches`'s `convs`: the traced resnet convs
+    (`resnet_convs`) through gnconv3x3, refused by `gate`, refused with dx."""
+    refused = [c for c in convs if not gate(c)]
+    return len(convs) - len(refused), len(refused), sum(bool(c[4]) for c in refused)
+
+
 @pytest.mark.parametrize("network", ["lierla", "c3lier"])
 def test_fused_schedule_of_chip_smoke(network, monkeypatch):
     """chip_smoke's `fused_launches` against the calls of each kernel's
@@ -166,6 +174,8 @@ def test_fused_schedule_of_chip_smoke(network, monkeypatch):
     upsampler, 4 transformer blocks; the conv gate at 5 channels, so that
     conv_in and conv_out stay thin as in SD): a folded, an off and an on
     forward, then the on forward's backward."""
+    convs = resnet_convs(UNetConfig(**TINY), 64, 64)
+    assert len(convs) == 16  # 8 resnets
     for k, v in KNOBS.items():
         monkeypatch.setenv(k, v)
     monkeypatch.setattr(gn_conv, "supports", lambda *a: True)
@@ -184,5 +194,50 @@ def test_fused_schedule_of_chip_smoke(network, monkeypatch):
             unet(x, 10.0, ctx)
     out = unet(x, 10.0, ctx)
     out.float().square().mean().backward()
-    assert calls == chip_smoke.fused_launches(network, forwards=3, targets=1, resnets=8,
+    assert calls == chip_smoke.fused_launches(network, forwards=3, targets=1,
+                                              convs=conv_counts(convs, lambda c: True),
                                               upsamplers=1, transformers=4)
+
+
+def test_fused_schedule_of_chip_smoke_with_refused_convs(monkeypatch):
+    """The same, lierla, with the gnconv gate refusing the level-0 resnet
+    convs (8 x 8 here, as `gn_conv.MAX_FUSED_SIDE` refuses SD's 32 x 32
+    and 64 x 64 ones): those take the GroupNorm kernel and conv3x3, and the backward
+    runs conv3x3's dx where the conv's input needs a gradient (not the
+    first resnet's, before any LoRA)."""
+    convs = resnet_convs(UNetConfig(**TINY), 64, 64)
+    for k, v in KNOBS.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(gn_conv, "supports", lambda shape, cout, dtype, device: shape[2] != 8)
+    monkeypatch.setattr(conv, "HOT_MIN_CHANNELS", 5)
+    unet = UNet2DConditionModel(UNetConfig(**TINY), attn_backend="flash")
+    gen = torch.Generator().manual_seed(0)
+    init_unet_(unet, gen, torch.float32)
+    lora.apply_lora_spec(unet, lora.LoRASpec(rank=4, network_type="lierla"), gen)
+    x = torch.randn((1, 4, 8, 8), generator=gen)
+    ctx = torch.randn((1, 77, 32), generator=gen)
+    calls = _count_plain_calls(monkeypatch)
+    with torch.no_grad():
+        with lora.folded_lora(unet):
+            unet(x, 10.0, ctx)
+        with lora.lora_mode(unet, "off"):
+            unet(x, 10.0, ctx)
+    unet(x, 10.0, ctx).float().square().mean().backward()
+    want = chip_smoke.fused_launches("lierla", forwards=3, targets=1,
+                                     convs=conv_counts(convs, lambda c: c[1] != 8),
+                                     upsamplers=1, transformers=4)
+    assert want["conv3x3"] > 0 and want["gnconv3x3"] > 0  # both routes run
+    assert calls == want
+
+
+@pytest.mark.parametrize("model,resolution,pinned", [
+    ("sd15", chip_smoke.SD15_RESOLUTION, chip_smoke.SD15_CONVS),
+    ("sdxl", chip_smoke.XL_RESOLUTION, chip_smoke.XL_CONVS),
+])
+def test_pinned_conv_counts_of_chip_smoke_follow_the_gate(model, resolution, pinned):
+    """chip_smoke pins the knobs-on resnet conv counts its launch checks
+    expect; they are the port's gnconv gate on the model's traced convs."""
+    gate = lambda c: gn_conv.supports((1, c[0], c[1], c[2]), c[3], torch.bfloat16,  # noqa: E731
+                                      torch.device("cuda"))
+    assert conv_counts(chip_smoke.unet_convs(model, resolution), gate) == pinned
+    assert len(chip_smoke.refused_convs(model, resolution)) == pinned[1]
