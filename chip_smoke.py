@@ -100,7 +100,27 @@ Phases, each printing its result on a line of its own:
                power limit; and the phase-conv upsampler (the port's and
                the JAX package's four-conv form) against materialise +
                F.conv2d at SD1.5's three upsampler shapes;
- 12. xl      — SDXL at full width, cuDNN deterministic: a random SDXL single
+ 12. parallel — data, tensor and spatial parallelism (`leco_tpu_torch.parallel`):
+               (printed right after phase kernels as phase kernels_sharded)
+               kernels 1-3 at the shapes spatial parallelism hands them (SD1.5
+               at 512 px, sp 2 and 4: the forward and dQ on N / sp query rows
+               against all N keys, dK/dV on N / sp key rows against all N
+               queries) against their plain versions under phase kernels'
+               limits and controls, the level-0 shapes timed beside the plain
+               version and SDPA; then, after phase infer, one train step of the
+               full-width SD1.5 bundle
+               (bf16, 512 px) on each mesh, dp 2 at batch 2 and 1, sp 2, tp 2
+               (2 ranks) and dp x sp 2 x 2 (4 ranks), every rank on this card
+               over gloo, against the unsharded step on the same weights and
+               latents: the loss, the LoRA gradients at RTOL_GRAD x max|g|
+               (two controls must fail it: the sp K/V gather replaced by the
+               rank's own rows, the halo rows zeroed), bitwise the same LoRA
+               on every rank, each rank's flash launches the unsharded
+               step's, the 4-rank run's memory; then the default recipe
+               through the CLI with a launcher's environment at world size 1
+               (NCCL). Times of ranks that share one card are no parallel
+               speed;
+ 13. xl      — SDXL at full width, cuDNN deterministic: a random SDXL single
                file (fp16, 6.3 GiB, LDM keys checked against
                tests/fixtures/ldm_unet_keys_sdxl.txt) written one tensor at
                a time; examples/config_xl.yaml + prompts_xl.yaml (1024 px,
@@ -113,7 +133,7 @@ Phases, each printing its result on a line of its own:
                shapes), packed bitwise the 3-d route; the trained LoRA's A/B
                at 1024 px, 20 DDIM steps, with exact launches, and a
                full-width SDXL VAE decode to uint8 (1, 1024, 1024, 3);
- 13. ti      — textual-inversion erasure, cuDNN deterministic: a random
+ 14. ti      — textual-inversion erasure, cuDNN deterministic: a random
                full-width SD1.5 diffusers checkpoint (fp16, CLIP-L, the
                synthetic tokenizer); examples/ti_config.yaml +
                prompts.yaml (van gogh, 512 px, batch 2, bf16, DDIM, AdamW at
@@ -2440,6 +2460,290 @@ def phase_ti(device, out_dir: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase parallel: data, tensor and spatial parallelism (leco_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+# SD1.5 at 512 px, the self-attention levels (tokens, head dim) and the sp
+# sizes whose shards the kernels take: forward and dQ at Nq = N / sp against
+# Nk = N, dK/dV at Nk = N / sp against Nq = N; the forward at the inner
+# loop's BH = 2 x 8 heads, the backward pair at the target's BH = 8
+PARALLEL_LEVELS = ((4096, 40), (1024, 80), (256, 160))
+PARALLEL_SP = (2, 4)
+PARALLEL_FWD_BH, PARALLEL_BWD_BH = 16, 8
+PARALLEL_RESOLUTION = 512
+PARALLEL_TIMESTEPS_TO = 2
+PARALLEL_LR = 1e-4
+# the multi-rank steps, every rank on this card over gloo: name -> (batch,
+# (inner axis, size), control); the controls must fail the gradient gate
+PARALLEL_TWO_RANKS = {
+    "dp2_b2": (2, ("tp", 1), None),
+    "dp2_b1": (1, ("tp", 1), None),
+    "sp2_b1": (1, ("sp", 2), None),
+    "tp2_b1": (1, ("tp", 2), None),
+    "sp2_b1_control_kv_local": (1, ("sp", 2), "kv_local"),
+    "sp2_b1_control_halo_zero": (1, ("sp", 2), "halo_zero"),
+}
+PARALLEL_FOUR_RANKS = {"dp2_sp2_b1": (1, ("sp", 2), None)}
+# bf16 throughout; the sharded step sums in other orders (GroupNorm's
+# statistics over sp, the row-parallel partials over tp, the LoRA gradients
+# over the ranks), so the loss is held to RTOL_PARALLEL_LOSS of the
+# unsharded step's and the gradients to RTOL_GRAD x max|g| (chip_smoke's
+# flash gradient limit)
+RTOL_PARALLEL_LOSS = 2e-2
+PARALLEL_MEMORY_LIMIT_GIB = 60.0
+
+
+def sharded_kernel_checks(device) -> dict:
+    """Kernels 1-3 at the shapes spatial parallelism hands them, each
+    against its plain version under the limits of phase kernels with their
+    controls; the level-0 shapes timed beside the plain version and SDPA
+    (one SDPA backward beside each of dq and dkv) -> {"shapes": [...],
+    "worst_abs_err": {...}, "timed": {sp: {kernel: times}}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from leco_tpu_torch.kernels import roofline
+    from leco_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device)
+    gen.manual_seed(12)
+    warm_up_clocks(device)
+    worst = {name: 0.0 for name in FLASH}
+    timed, shapes = {}, []
+    for sp in PARALLEL_SP:
+        for n, d in PARALLEL_LEVELS:
+            def rand(bh, rows):
+                return torch.randn((bh, rows, d), generator=gen, device=device).to(torch.bfloat16)
+
+            local, scale = n // sp, d**-0.5
+            # forward: this rank's query rows against the gathered K/V
+            q, k, v = rand(PARALLEL_FWD_BH, local), rand(PARALLEL_FWD_BH, n), rand(PARALLEL_FWD_BH, n)
+            o, lse = fa.attn_fwd(q, k, v, scale)
+            o_ref, lse_ref = fa.attn_fwd_plain(q, k, v, scale)
+            o_dropped, _ = fa.attn_fwd_plain(q, k[:, :-DROPPED_KEYS], v[:, :-DROPPED_KEYS], scale)
+            fwd_shape = (PARALLEL_FWD_BH, local, n, d)
+            o_check = check_o(o, o_ref, o_dropped, fwd_shape)
+            lse_err = (lse - lse_ref).abs().max().item()
+            check(lse_err <= ATOL_LSE, f"LSE error {lse_err} > {ATOL_LSE} at {fwd_shape}")
+            # dq: the local rows against the gathered K/V; dk/dv: the local K/V
+            # rows against the gathered Q, dO, lse and delta
+            bh = PARALLEL_BWD_BH
+            ql, kf, vf, gl = rand(bh, local), rand(bh, n), rand(bh, n), rand(bh, local)
+            ol, lse_l = fa.attn_fwd_plain(ql, kf, vf, scale)
+            delta_l = (gl.float() * ol.float()).sum(-1)
+            qf, kl, vl, gf = rand(bh, n), rand(bh, local), rand(bh, local), rand(bh, n)
+            of, lse_f = fa.attn_fwd_plain(qf, kl, vl, scale)
+            delta_f = (gf.float() * of.float()).sum(-1)
+            got = {"dq": fa.attn_bwd_dq(ql, kf, vf, gl, lse_l, delta_l, scale)}
+            got["dk"], got["dv"] = fa.attn_bwd_dkv(qf, kl, vl, gf, lse_f, delta_f, scale)
+            ref = {"dq": fa.attn_bwd_dq_plain(ql, kf, vf, gl, lse_l, delta_l, scale)}
+            ref["dk"], ref["dv"] = fa.attn_bwd_dkv_plain(qf, kl, vl, gf, lse_f, delta_f, scale)
+            kept = slice(0, n - DROPPED_QUERIES)
+            control = {"dq": fa.attn_bwd_dq_plain(ql, kf[:, :-DROPPED_KEYS], vf[:, :-DROPPED_KEYS],
+                                                  gl, lse_l, delta_l, scale)}
+            control["dk"], control["dv"] = fa.attn_bwd_dkv_plain(
+                qf[:, kept], kl, vl, gf[:, kept], lse_f[:, kept], delta_f[:, kept], scale)
+            torch.cuda.synchronize()
+            dq_shape, dkv_shape = (bh, local, n, d), (bh, n, local, d)
+            grads = check_grads(got, ref, control, (dq_shape, dkv_shape))
+            worst["attn_fwd"] = max(worst["attn_fwd"], o_check["o"], lse_err)
+            worst["attn_bwd_dq"] = max(worst["attn_bwd_dq"], grads["err"]["dq"])
+            worst["attn_bwd_dkv"] = max(worst["attn_bwd_dkv"], grads["err"]["dk"],
+                                        grads["err"]["dv"])
+            row = {"sp": sp, "fwd": fwd_shape, "dq": dq_shape, "dkv": dkv_shape,
+                   "max_abs_err": {"o": o_check["o"], "lse": lse_err, **grads["err"]},
+                   "o_limit": o_check["o_limit"], "o_control": o_check["o_control"],
+                   "grad_limit": grads["grad_limit"], "grad_control": grads["grad_control"]}
+            if n == PARALLEL_LEVELS[0][0]:
+                def sdpa_backward(qq, kk, vv, gg):
+                    qg, kg, vg = (t[None].detach().requires_grad_() for t in (qq, kk, vv))
+                    out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+                    return lambda: torch.autograd.grad(out, (qg, kg, vg), gg[None],
+                                                       retain_graph=True)
+
+                fns = {
+                    "attn_fwd": (lambda: fa.attn_fwd(q, k, v, scale),
+                                 lambda: fa.attn_fwd_plain(q, k, v, scale),
+                                 lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                                        scale=scale)),
+                    "attn_bwd_dq": (
+                        lambda: fa.attn_bwd_dq(ql, kf, vf, gl, lse_l, delta_l, scale),
+                        lambda: fa.attn_bwd_dq_plain(ql, kf, vf, gl, lse_l, delta_l, scale),
+                        sdpa_backward(ql, kf, vf, gl)),
+                    "attn_bwd_dkv": (
+                        lambda: fa.attn_bwd_dkv(qf, kl, vl, gf, lse_f, delta_f, scale),
+                        lambda: fa.attn_bwd_dkv_plain(qf, kl, vl, gf, lse_f, delta_f, scale),
+                        sdpa_backward(qf, kl, vl, gf)),
+                }
+                kernel_shapes = {"attn_fwd": fwd_shape, "attn_bwd_dq": dq_shape,
+                                 "attn_bwd_dkv": dkv_shape}
+                timed[sp] = {name: {"shape": kernel_shapes[name], **kernel_times(*f),
+                                    **roofline.kernel_bound(name, kernel_shapes[name])}
+                             for name, f in fns.items()}
+                row["timed"] = timed[sp]
+                del fns
+            print(json.dumps({"sharded_kernels": row}), flush=True)
+            shapes.append(row)
+            del q, k, v, o, o_ref, o_dropped, got, ref, control
+            torch.cuda.empty_cache()
+    return {"shapes": shapes, "worst_abs_err": worst, "timed": timed}
+
+
+def parallel_case(batch: int) -> dict:
+    """The multi-rank step's case: the full-width SD1.5 random bundle (bf16,
+    seed 0, its lora_up drawn), the van-gogh erase pack and seeded latents
+    at PARALLEL_RESOLUTION, on the CPU (each rank moves it to the card)."""
+    import torch
+
+    from leco_tpu_torch.models.unet import sd15_config
+    from leco_tpu_torch.prompts import PromptSettings
+    from leco_tpu_torch.testing import fake_encode_fn
+    from leco_tpu_torch.train import trainer
+
+    settings = PromptSettings.from_dict({"target": "van gogh", "positive": "van gogh",
+                                         "resolution": PARALLEL_RESOLUTION,
+                                         "batch_size": batch})
+    (pair,) = trainer.encode_prompt_pairs([settings], fake_encode_fn(768, "cpu"))
+    gen = torch.Generator().manual_seed(100 + batch)
+    side = PARALLEL_RESOLUTION // 8
+    return {"config": sd15_config(), "seed": 0, "dtype": torch.bfloat16,
+            "res": PARALLEL_RESOLUTION, "max_steps": 50, "timesteps_to": PARALLEL_TIMESTEPS_TO,
+            "guidance_scale": pair.guidance_scale, "erase_sign": pair.erase_sign,
+            "pack": trainer.build_pack(pair),
+            "latents": torch.randn((batch, 4, side, side), generator=gen)}
+
+
+def parallel_gate(got: dict, ref: dict) -> dict:
+    """The LoRA gradients of a sharded step against the unsharded one's ->
+    error, limit (RTOL_GRAD x max|g| over the tree)."""
+    size = max(v.abs().max().item() for v in ref.values())
+    err = max((got[k] - v).abs().max().item() for k, v in ref.items())
+    return {"grad_err": err, "grad_limit": RTOL_GRAD * size}
+
+
+def parallel_nccl_cli(ckpt: Path, out_dir: Path) -> dict:
+    """The default recipe through the CLI's `main()` with a launcher's
+    environment at world size 1: torch.distributed starts on NCCL."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from leco_tpu_torch.utils import yaml_subset
+
+    config = yaml_subset.load(REPO / "examples" / "config.yaml")
+    config["prompts_file"] = str(REPO / "examples" / "prompts.yaml")
+    config["pretrained_model"]["name_or_path"] = str(ckpt)
+    config["train"]["iterations"] = 2
+    config["save"]["path"] = str(out_dir / "nccl")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": port}
+    try:
+        with environ(env):
+            run = run_cli(config, out_dir / "config_nccl.yaml")
+            backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    losses = run["result"]["losses"]
+    check(backend == "nccl", f"the CLI started {backend}, not NCCL")
+    check(len(losses) == 2 and all(torch.isfinite(torch.tensor(losses)).tolist()),
+          f"NCCL CLI losses {losses}")
+    check((out_dir / "nccl" / "van_gogh_last.safetensors").exists(), "NCCL CLI save")
+    return {"backend": backend, "losses": losses, "launches": run["launches"],
+            "seconds": run["seconds"]}
+
+
+def phase_parallel(device, ckpt: Path, out_dir: Path) -> dict:
+    """One step of each mesh of
+    PARALLEL_TWO_RANKS and PARALLEL_FOUR_RANKS, every rank on this card over
+    gloo (`leco_tpu_torch.parallel.testing`), against the unsharded step on
+    the same weights and latents: the loss, the LoRA gradients (the two
+    controls must fail), bitwise the same LoRA on every rank, each rank's
+    flash launches the unsharded step's; the CLI through NCCL at world size
+    1. No time of the ranks that share the card is a parallel speed."""
+    import torch
+
+    from leco_tpu_torch.parallel import testing as ptesting
+
+    cases = {b: parallel_case(b) for b in (1, 2)}
+    refs = {}
+    for b, case in cases.items():
+        unet, spec = ptesting.build_unet(case, device)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True):  # as the ranks run
+            refs[b] = ptesting.step_once(unet, spec, case, device, PARALLEL_LR)
+        refs[b]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        del unet
+        torch.cuda.empty_cache()
+    for b, ref in refs.items():  # the unsharded step runs every kernel of the path
+        check(all(ref["calls"][f"launches_{name}"] > 0 for name in FLASH),
+              f"the unsharded batch-{b} step launched {ref['calls']}")
+    print(json.dumps({"parallel_reference": {b: {"loss": r["loss"], "calls": r["calls"],
+                                                 "peak_mem_gb": r["peak_mem_gb"]}
+                                             for b, r in refs.items()}}), flush=True)
+
+    results, worlds = {}, {}
+    for world, steps in ((2, PARALLEL_TWO_RANKS), (4, PARALLEL_FOUR_RANKS)):
+        job = {"kind": "steps", "device": str(device), "lr": PARALLEL_LR, "threads": 2,
+               "cases": {str(b): c for b, c in cases.items()},
+               "steps": {name: {"case": str(b), "mesh": mesh, "control": control}
+                         for name, (b, mesh, control) in steps.items()}}
+        t0 = time.perf_counter()
+        ranks = ptesting.spawn(job, world, out_dir / f"parallel_world{world}")
+        worlds[world] = {"seconds": time.perf_counter() - t0,
+                         "foreign_modules": [r["foreign_modules"] for r in ranks],
+                         "peak_mem_gb_sum": sum(max(r[s].get("peak_mem_gb", 0.0) for s in steps)
+                                                for r in ranks)}
+        check(all(not m for m in worlds[world]["foreign_modules"]),
+              f"rank processes imported {worlds[world]['foreign_modules']}")
+        for name, (b, mesh, control) in steps.items():
+            ref = refs[b]
+            per_rank = []
+            for rank, r in enumerate(ranks):
+                res = r[name]
+                gate = parallel_gate(res["grads"], ref["grads"])
+                loss_err = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
+                launches_ = {k: v for k, v in res["calls"].items() if k.startswith("launches_")}
+                want = {k: v for k, v in ref["calls"].items() if k.startswith("launches_")}
+                if control is None:
+                    check(gate["grad_err"] <= gate["grad_limit"],
+                          f"{name} rank {rank}: LoRA grads differ by {gate['grad_err']} > "
+                          f"{gate['grad_limit']}")
+                    check(loss_err <= RTOL_PARALLEL_LOSS,
+                          f"{name} rank {rank}: loss {res['loss']} vs {ref['loss']}")
+                    check(launches_ == want, f"{name} rank {rank}: launches {launches_} != {want}")
+                else:
+                    check(gate["grad_err"] > gate["grad_limit"],
+                          f"{name}: the gradient limit {gate['grad_limit']} passes the control "
+                          f"({gate['grad_err']})")
+                per_rank.append({"loss": res["loss"], "loss_rel_err": loss_err, **gate,
+                                 "launches": launches_, "coords": res["coords"],
+                                 "tp_layers": res["tp_layers"],
+                                 "peak_mem_gb": res.get("peak_mem_gb")})
+            bitwise = all(torch.equal(r[name]["lora"][k], ranks[0][name]["lora"][k])
+                          for r in ranks[1:] for k in ranks[0][name]["lora"])
+            if control is None:
+                check(bitwise, f"{name}: the ranks' LoRA differ after the step")
+            results[name] = {"world": world, "mesh": mesh, "control": control,
+                             "bitwise_equal_lora": bitwise, "ranks": per_rank}
+            print(json.dumps({"parallel_step": {name: results[name]}}), flush=True)
+        del ranks
+    check(worlds[4]["peak_mem_gb_sum"] < PARALLEL_MEMORY_LIMIT_GIB,
+          f"the 4-rank run peaks at {worlds[4]['peak_mem_gb_sum']} GiB")
+    print(f"parallel: 4-rank peak (sum of the ranks' peaks) "
+          f"{worlds[4]['peak_mem_gb_sum']:.2f} GiB",
+          flush=True)
+    nccl = parallel_nccl_cli(ckpt, out_dir)
+    return {"references": {b: {"loss": r["loss"], "calls": r["calls"]}
+                                               for b, r in refs.items()},
+            "steps": results, "worlds": worlds, "nccl_cli": nccl}
+
+
 def main() -> None:
     import torch
 
@@ -2459,6 +2763,9 @@ def main() -> None:
     phase("build", phase_build())
     kernels = phase_kernels(device)
     phase("kernels", kernels)
+    # the parallel path's shapes of kernels 1-3 (phase parallel runs the
+    # path itself, late, on phase cli's checkpoint)
+    phase("kernels_sharded", sharded_kernel_checks(device))
     fused_kernels = phase_fused_kernels(device)
     phase("fused_kernels", fused_kernels)
 
@@ -2493,6 +2800,8 @@ def main() -> None:
         phase("cli", cli)
         phase("recipes", phase_recipes(device, Path(tmp) / SD21_CHECKPOINT, Path(tmp)))
         phase("infer", phase_infer(device, Path(tmp) / SD21_CHECKPOINT, Path(tmp)))
+        parallel = phase_parallel(device, Path(tmp) / SD21_CHECKPOINT, Path(tmp))
+        phase("parallel", parallel)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase("xl", phase_xl(device, Path(tmp)))
@@ -2503,7 +2812,12 @@ def main() -> None:
     # each kernel's launches come from the run of the path it is on: the
     # flash kernels from the default path, the fused ones from the knobs-on
     # lierla path, the packed one from the CLI's LECO_FLASH_PACKED=1 run
-    # (each driven with the counts at 0 just before it)
+    # (each driven with the counts at 0 just before it); the flash kernels'
+    # also from each parallel mesh's step, rank 0's
+    parallel_launches = {
+        name: {mesh: result["ranks"][0]["launches"][f"launches_{name}"]
+               for mesh, result in parallel["steps"].items() if result["control"] is None}
+        for name in FLASH}
     measured = {**{n: (kernels, train_result) for n in FLASH},
                 PACKED: (kernels, cli["packed"]),
                 **{n: (fused_kernels, train_fused) for n in FUSED}}
@@ -2525,6 +2839,7 @@ def main() -> None:
             # the device's own time per call (torch.profiler), the same three
             **{key: measured[name][0]["timed_ms"][name][key]
                for key in ("device_ms", "plain_device_ms", "library_device_ms")},
+            **({"parallel_launches": parallel_launches[name]} if name in FLASH else {}),
         }
         for name, (source, replaces) in KERNELS.items()
     ]}), flush=True)

@@ -35,6 +35,13 @@ An upsampler conv (`pre_upsample`) takes the input before its nearest-2x
 upsample and, with no LoRA branch on, runs as four 2x2 phase convolutions
 at the input's resolution, as the JAX package's `LoRAConv` does.
 
+Under a parallel context (`leco_tpu_torch.parallel`, set by the UNet's
+`set_parallel`), a 3x3 conv whose call has its H split over sp takes its
+neighbours' halo rows (`parallel/spatial.py`), and a Linear that
+`parallel.sharding.shard_unet` cut to a tp share runs column- or
+row-parallel with its LoRA factors sliced to match; without one, nothing
+changes.
+
 Export writes the A1111-AddNet / kohya layout,
 `lora_unet_<path>.{lora_down.weight, lora_up.weight, alpha}`, to
 `.safetensors` with a small writer of its own (8-byte little-endian header
@@ -61,6 +68,8 @@ import torch.nn.functional as F
 from leco_tpu_torch.ops import conv as conv_ops
 from leco_tpu_torch.ops import geglu as geglu_ops
 from leco_tpu_torch.ops import gn_conv
+from leco_tpu_torch.parallel import sharding as tp_ops
+from leco_tpu_torch.parallel import spatial
 
 LORA_PREFIX_UNET = "lora_unet"
 MODES = ("on", "off", "folded")
@@ -135,6 +144,7 @@ class _LoRALayer(nn.Module):
 
     lora_down: Optional[nn.Parameter]
     lora_up: Optional[nn.Parameter]
+    parallel = None  # a parallel.context.ParallelContext, set by the UNet
 
     def _init_lora_state(self) -> None:
         self.lora_down = None
@@ -155,14 +165,23 @@ class _LoRALayer(nn.Module):
     def _branch_on(self) -> bool:
         return self.has_lora and self.mode == "on"
 
+    def lora_factors(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(down, up) as this layer's share of the weight uses them."""
+        return self.lora_down, self.lora_up
+
     def fold(self) -> None:
-        self.folded = _fold_weight(self.weight, self.lora_down, self.lora_up, self.lora_scale)
+        self.folded = _fold_weight(self.weight, *self.lora_factors(), self.lora_scale)
 
 
 class LoRALinear(_LoRALayer):
     """nn.Linear (weight (out, in), optional bias) in its own parameter
     dtype, computing in the input's dtype, with an optional LoRA branch
-    `lora_down` (r, in) / `lora_up` (out, r)."""
+    `lora_down` (r, in) / `lora_up` (out, r). A tp-sharded layer holds
+    its share of the base weight and the whole LoRA (`tp_role`, `tp_index`:
+    its output rows or input columns)."""
+
+    tp_role: Optional[str] = None
+    tp_index: Optional[torch.Tensor] = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
@@ -183,7 +202,16 @@ class LoRALinear(_LoRALayer):
         )
         self.lora_scale = spec.stored_alpha / r
 
+    def lora_factors(self) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.tp_role == tp_ops.COLUMN:
+            return self.lora_down, self.lora_up.index_select(0, self.tp_index)
+        if self.tp_role == tp_ops.ROW:
+            return self.lora_down.index_select(1, self.tp_index), self.lora_up
+        return self.lora_down, self.lora_up
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_role is not None:
+            return tp_ops.linear(self, x)
         dt = x.dtype
         bias = None if self.bias is None else self.bias.to(dt)
         y = F.linear(x, self._weight().to(dt), bias)
@@ -197,12 +225,16 @@ class LoRALinear(_LoRALayer):
         with geglu=True, lora.py:220-260, without the ride-along): value *
         gelu_exact(gate) of its two output halves, the LoRA delta
         xd = (x down^T) * scale entering before the activation. The backend
-        is `LECO_GEGLU`'s; "fused" takes the kernel where it supports x."""
+        is `LECO_GEGLU`'s; "fused" takes the kernel where it supports x.
+        Column-parallel under tp, its share is [value_local | gate_local]."""
+        if self.tp_role is not None:
+            x = tp_ops.column_input(self, x)
         dt = x.dtype
         xd = up = None
         if self._branch_on():
-            xd = F.linear(x, self.lora_down.to(dt)) * self.lora_scale
-            up = self.lora_up.to(dt)
+            down, up = self.lora_factors()
+            xd = F.linear(x, down.to(dt)) * self.lora_scale
+            up = up.to(dt)
         backend = geglu_ops.default_geglu_backend()
         if backend == "fused" and geglu_ops.supports(dt, x.device):
             fn = geglu_ops.geglu_fused
@@ -266,7 +298,13 @@ class LoRAConv2d(_LoRALayer):
         return (not self.has_lora and self._is_hot_3x3()
                 and gn_conv.supports(x.shape, self.out_channels, x.dtype, x.device))
 
-    def _phase_conv_up2x(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def _halo(self) -> bool:
+        """Does this call's input hold only this rank's rows of H?"""
+        return (self.parallel is not None and self.parallel.spatial
+                and self.kernel_size > 1)
+
+    def _phase_conv_up2x(self, x: torch.Tensor, w: torch.Tensor,
+                         halo: bool = False) -> torch.Tensor:
         """Nearest-2x upsample followed by this 3x3/s1/p1 conv, as four 2x2
         phase convolutions at x's resolution (the JAX package's
         `LoRAConv._phase_conv_up2x`, lora.py:347-381). Output phase (a, b)
@@ -277,7 +315,8 @@ class LoRAConv2d(_LoRALayer):
         sums are taken in w's dtype, the compute dtype. The four convs run
         as one, over x padded on every side, with the four 2x2 kernels
         stacked along the output channels; phase (a, b) is then the window
-        of its output that starts at (a, b)."""
+        of its output that starts at (a, b). With `halo`, the rows above
+        and below are the neighbour ranks' (zeros at the global edges)."""
         n, _, h, wd = x.shape
         kernels = []
         for a in (0, 1):
@@ -288,7 +327,9 @@ class LoRAConv2d(_LoRALayer):
                 cols = ((ka[..., 0], ka[..., 1] + ka[..., 2]) if b == 0
                         else (ka[..., 0] + ka[..., 1], ka[..., 2]))
                 kernels.append(torch.stack(cols, dim=3))  # (Cout, Cin, 2, 2)
-        y = F.conv2d(F.pad(x, (1, 1, 1, 1)), torch.cat(kernels))  # (B, 4·Cout, H+1, W+1)
+        xp = (F.pad(spatial.halo_rows(x, self.parallel), (1, 1)) if halo
+              else F.pad(x, (1, 1, 1, 1)))
+        y = F.conv2d(xp, torch.cat(kernels))  # (B, 4·Cout, H+1, W+1)
         y = y.unflatten(1, (2, 2, -1))
         out = y.new_empty((n, y.shape[3], 2 * h, 2 * wd))
         for a in (0, 1):
@@ -309,11 +350,14 @@ class LoRAConv2d(_LoRALayer):
         materialised and the conv runs as any other (the JAX package's
         choice, lora.py:384-399)."""
         dt = x.dtype
+        halo = self._halo()
         if self.pre_upsample:
             if not self._branch_on():
-                y = self._phase_conv_up2x(x, self._weight().to(dt))
+                y = self._phase_conv_up2x(x, self._weight().to(dt), halo)
                 return y if self.bias is None else y + self.bias.to(dt)[None, :, None, None]
             x = F.interpolate(x, scale_factor=2.0, mode="nearest")
+        if halo:
+            return self._halo_conv(x)
         if affine is not None:
             a, s = affine
             return gn_conv.affine_silu_conv(
@@ -326,6 +370,19 @@ class LoRAConv2d(_LoRALayer):
             y = F.conv2d(x, self._weight().to(dt), bias, self.stride, self.padding)
         if self._branch_on():
             h = F.conv2d(x, self.lora_down.to(dt), None, self.stride, self.padding)
+            y = y + F.conv2d(h, self.lora_up.to(dt)) * self.lora_scale
+        return y
+
+    def _halo_conv(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's output rows from its input rows and the halo rows
+        (`parallel/spatial.py`), the LoRA branch on the same rows."""
+        dt = x.dtype
+        rows, pad = spatial.conv_input(x, self.parallel, self.kernel_size, self.stride,
+                                       self.padding)
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(rows, self._weight().to(dt), bias, self.stride, pad)
+        if self._branch_on():
+            h = F.conv2d(rows, self.lora_down.to(dt), None, self.stride, pad)
             y = y + F.conv2d(h, self.lora_up.to(dt)) * self.lora_scale
         return y
 

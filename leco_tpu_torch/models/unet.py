@@ -32,6 +32,11 @@ output is added to the time embedding before any block runs.
 A float64 UNet computes in float64, its norms' statistics and sinusoids
 included (a reference for the fp32 and bf16 forwards; the GEGLU's
 polynomial gelu rounds through fp32).
+`set_parallel(ctx)` (`leco_tpu_torch.parallel.context`) makes the UNet run
+sharded: each call cuts its share of the batch over dp and of H over sp,
+runs the layers on it (3x3 convs with halo rows, GroupNorm statistics and
+self-attention K/V over sp, `parallel/spatial.py`; the tp-sharded Linears of
+`parallel/sharding.py`) and gathers the output. Without it nothing changes.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ from leco_tpu_torch.lora import LoRAConv2d, LoRALinear
 from leco_tpu_torch.ops import gn_conv
 from leco_tpu_torch.ops import group_norm as gn_ops
 from leco_tpu_torch.ops.attention import multi_head_attention
+from leco_tpu_torch.parallel import spatial
+from leco_tpu_torch.parallel.context import attach
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +181,8 @@ class GroupNorm(nn.Module):
     of GroupNorm(x + temb) for a conv that applies it with the SiLU (the JAX
     package's FusedGroupNorm(affine_only=True), the fused resnet)."""
 
+    parallel = None  # set by UNet2DConditionModel.set_parallel
+
     def __init__(self, groups: int, channels: int, eps: float, silu: bool = False):
         super().__init__()
         self.groups, self.eps, self.silu = groups, eps, silu
@@ -186,6 +195,9 @@ class GroupNorm(nn.Module):
                 temb = torch.zeros(x.shape[:2], dtype=torch.float32, device=x.device)
             return gn_conv.affine_from_gn(x, self.weight, self.bias, temb,
                                           self.groups, self.eps)
+        if self.parallel is not None and self.parallel.spatial:
+            return spatial.group_norm(x, self.weight, self.bias, self.groups, self.eps,
+                                      self.silu, stat_dtype(x.dtype), self.parallel)
         if gn_ops.fused_enabled() and gn_ops.supports(x.dtype, x.device):
             return gn_ops.fused_group_norm(x, self.weight, self.bias, self.groups,
                                            self.eps, self.silu)
@@ -254,6 +266,8 @@ class ResnetBlock2D(nn.Module):
 
 
 class Attention(nn.Module):
+    parallel = None  # set by UNet2DConditionModel.set_parallel
+
     def __init__(self, dim, heads, ctx_dim=None, upcast=False, backend="xla"):
         super().__init__()
         self.heads, self.upcast, self.backend = heads, upcast, backend
@@ -264,11 +278,14 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([LoRALinear(dim, dim)])
 
     def forward(self, x, ctx=None):
-        ctx = x if ctx is None else ctx
-        out = multi_head_attention(
-            self.to_q(x), self.to_k(ctx), self.to_v(ctx), num_heads=self.heads,
-            upcast=self.upcast, backend=self.backend,
-        )
+        kv = x if ctx is None else ctx
+        q, k, v = self.to_q(x), self.to_k(kv), self.to_v(kv)
+        if self.parallel is not None and self.parallel.spatial:
+            out = spatial.attention(q, k, v, self.heads, self.upcast, self.backend,
+                                    self.parallel, self_attention=ctx is None)
+        else:
+            out = multi_head_attention(q, k, v, num_heads=self.heads, upcast=self.upcast,
+                                       backend=self.backend)
         return self.to_out[0](out)
 
 
@@ -499,7 +516,11 @@ class UNet2DConditionModel(nn.Module):
     -> (B, 4, H, W) in the compute dtype. `added_cond_kwargs` is SDXL's
     {"text_embeds": (B, pooled), "time_ids": (B, 6)}, required there and
     ignored elsewhere. Parameters are created empty; fill them with
-    `leco_tpu_torch.testing.init_unet_` or `load_state_dict`."""
+    `leco_tpu_torch.testing.init_unet_` or `load_state_dict`. Under a
+    parallel context (`set_parallel`) the inputs and the output are the
+    global tensors; `forward_local` runs on this rank's share."""
+
+    parallel = None  # a parallel.context.ParallelContext
 
     def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.float32,
                  attn_backend: str = "xla", checkpoint_unet: bool = False):
@@ -584,11 +605,22 @@ class UNet2DConditionModel(nn.Module):
             if isinstance(mod, Attention):
                 mod.backend = backend
 
+    def set_parallel(self, ctx) -> None:
+        """Run sharded by `ctx` (a ParallelContext), or unsharded with None:
+        the UNet and every layer that reads the context hold it."""
+        attach(self, ctx)
+
     @property
     def is_xl(self) -> bool:
         return self.cfg.addition_embed_type == "text_time"
 
     def forward(self, sample, timesteps, encoder_hidden_states, added_cond_kwargs=None):
+        if self.parallel is not None:
+            return self.parallel.call(self.forward_local, sample, timesteps,
+                                      encoder_hidden_states, added_cond_kwargs)[0]
+        return self.forward_local(sample, timesteps, encoder_hidden_states, added_cond_kwargs)
+
+    def forward_local(self, sample, timesteps, encoder_hidden_states, added_cond_kwargs=None):
         cfg = self.cfg
         sample = sample.to(self.dtype)
         ctx = encoder_hidden_states.to(self.dtype)
@@ -618,7 +650,9 @@ class UNet2DConditionModel(nn.Module):
 
         if self.checkpoint_unet and torch.is_grad_enabled():
             def run(block, *args):
-                return checkpoint(block, *args, use_reentrant=False)
+                # the recomputation in the backward runs with this call's sharding
+                fn = block if self.parallel is None else self.parallel.bound(block)
+                return checkpoint(fn, *args, use_reentrant=False)
         else:
             def run(block, *args):
                 return block(*args)

@@ -38,6 +38,39 @@ def _xla_attention(q, k, v, scale: float, upcast: bool):
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype), v)
 
 
+def route(nq: int, nk: int, q: torch.Tensor, num_heads: int, backend: str) -> str:
+    """The route of Nq queries against Nk keys: "packed", "flash" (the 3-d
+    kernels) or "plain". The rule, as in the JAX package: with
+    backend="flash", self-attention with Nq, Nk >= 256 goes to the kernels
+    (fp32 on CUDA excepted, see `flash_attention.supports`), to the packed
+    one under `LECO_FLASH_PACKED=1` where `supports_packed` admits the
+    shape; cross-attention over the 77 text tokens (unless
+    `LECO_FLASH_CROSS=1`) and the 64-token mid block take the plain path.
+    """
+    if backend not in ("xla", "flash"):
+        raise ValueError(f"unknown attention backend: {backend}")
+    if backend == "flash" and fa.supports(nq, nk, q.dtype, q.device):
+        if fa.packed_enabled() and fa.supports_packed(nq, nk, q.shape[-1], num_heads):
+            return "packed"
+        return "flash"
+    return "plain"
+
+
+def split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, N, H*D) -> (B*H, N, D), the 3-d kernels' layout."""
+    return rearrange(t, "b n (h d) -> (b h) n d", h=num_heads).contiguous()
+
+
+def merge_heads(o3: torch.Tensor, num_heads: int) -> torch.Tensor:
+    return rearrange(o3, "(b h) n d -> b n (h d)", h=num_heads)
+
+
+def plain_attention(q, k, v, num_heads: int, scale: float, upcast: bool) -> torch.Tensor:
+    """`_xla_attention` on (B, N, H*D) sequences."""
+    qh, kh, vh = (rearrange(t, "b n (h d) -> b n h d", h=num_heads) for t in (q, k, v))
+    return rearrange(_xla_attention(qh, kh, vh, scale, upcast), "b n h d -> b n (h d)")
+
+
 def multi_head_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -49,36 +82,17 @@ def multi_head_attention(
     """Attention over flattened token sequences.
 
     q: (B, Nq, C); k, v: (B, Nk, C) with C = num_heads * head_dim.
-    Returns (B, Nq, C). The rule, as in the JAX package: with
-    backend="flash", self-attention with Nq, Nk >= 256 goes to the kernels
-    (fp32 on CUDA excepted, see `flash_attention.supports`), to the packed
-    one under `LECO_FLASH_PACKED=1` where `supports_packed` admits the
-    shape; cross-attention over the 77 text tokens (unless
-    `LECO_FLASH_CROSS=1`) and the 64-token mid block take the plain path.
+    Returns (B, Nq, C), by the route `route` gives.
     """
-    head_dim = q.shape[-1] // num_heads
-    scale = head_dim**-0.5
-    if backend not in ("xla", "flash"):
-        raise ValueError(f"unknown attention backend: {backend}")
-
-    if (backend == "flash" and fa.packed_enabled()
-            and fa.supports(q.shape[1], k.shape[1], q.dtype, q.device)
-            and fa.supports_packed(q.shape[1], k.shape[1], q.shape[-1], num_heads)):
+    scale = (q.shape[-1] // num_heads) ** -0.5
+    chosen = route(q.shape[1], k.shape[1], q, num_heads, backend)
+    if chosen == "packed":
         return fa.flash_attention_packed(q.contiguous(), k.contiguous(), v.contiguous(),
                                          num_heads, scale)
-    if backend == "flash" and fa.supports(q.shape[1], k.shape[1], q.dtype, q.device):
-        q3, k3, v3 = (
-            rearrange(t, "b n (h d) -> (b h) n d", h=num_heads).contiguous()
-            for t in (q, k, v)
-        )
-        o3 = fa.flash_attention_3d(q3, k3, v3, scale)
-        return rearrange(o3, "(b h) n d -> b n (h d)", h=num_heads)
-
-    qh, kh, vh = (
-        rearrange(t, "b n (h d) -> b n h d", h=num_heads) for t in (q, k, v)
-    )
-    out = _xla_attention(qh, kh, vh, scale, upcast)
-    return rearrange(out, "b n h d -> b n (h d)")
+    if chosen == "flash":
+        q3, k3, v3 = (split_heads(t, num_heads) for t in (q, k, v))
+        return merge_heads(fa.flash_attention_3d(q3, k3, v3, scale), num_heads)
+    return plain_attention(q, k, v, num_heads, scale, upcast)
 
 
 def default_backend(device: torch.device | str) -> str:

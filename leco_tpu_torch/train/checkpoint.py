@@ -100,11 +100,11 @@ def latest_step(directory: str | os.PathLike) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_train_state(directory: str | os.PathLike, iteration: Optional[int] = None,
-                        map_location=None) -> Optional[dict]:
+def restore_train_state(directory: str | os.PathLike,
+                        iteration: Optional[int] = None) -> Optional[dict]:
     """The latest (or a given) snapshot, or None if there is none:
     {"lora", "optimizer", "iteration", "generator", "rng"[, "ema"]}, the
-    tensors on `map_location` (the generator state stays on the CPU)."""
+    tensors on the CPU (`to_device` places the LoRA and EMA)."""
     directory = os.fspath(directory)
     step = iteration if iteration is not None else latest_step(directory)
     if step is None:
@@ -116,11 +116,15 @@ def restore_train_state(directory: str | os.PathLike, iteration: Optional[int] =
     state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
     if has_ema != ("ema" in state):
         raise ValueError(f"{path}: the sidecar's has_ema ({has_ema}) and the state disagree")
-    if map_location is not None:
-        for key in ("lora", "ema"):
-            if key in state:
-                state[key] = {k: v.to(map_location) for k, v in state[key].items()}
     state["rng"] = _decode_rng(sidecar)
+    return state
+
+
+def to_device(state: dict, device) -> dict:
+    """A restored state with its LoRA (and EMA) tensors on `device`."""
+    for key in ("lora", "ema"):
+        if key in state:
+            state[key] = {k: v.to(device) for k, v in state[key].items()}
     return state
 
 

@@ -23,11 +23,20 @@ periodic saves), `checkpoint_unet`, `save.async_write` (periodic saves
 copied to the host in the loop and written on a thread; a failed writer
 leaves a `_rescue` save and raises) and `logging.use_wandb` (`wandb` is
 imported only then; without it the loop says so and trains on).
-`data_parallel: true` on one device is a no-op, as it is on one chip in
-the JAX package. Refused: `step_chunk > 1` (the JAX package's device-side
-scan, not ported) and tensor or spatial parallelism (ROADMAP.md). Progress
-is one printed line per iteration (`Loss*1k`), where the reference draws a
-tqdm bar.
+Refused: `step_chunk > 1` (the JAX package's device-side scan, not
+ported). Progress is one printed line per iteration (`Loss*1k`), where the
+reference draws a tqdm bar.
+
+Data, tensor and spatial parallelism (`leco_tpu_torch.parallel`; the CLIs
+build the mesh): a UNet with a parallel context runs each call on this
+rank's share and hands back the global output, so the step's latents, the
+inner loop and the references are the same global tensors on every rank
+(drawn from one shared seed, `parallel.distributed.shared_seed`). The
+differentiated target keeps its local share: the ESD loss is taken from
+local sums reduced over dp and sp, and the LoRA gradients are summed where
+a rank's is a partial (`ParallelContext.reduce_lora_grads`), so a sharded
+step computes what the unsharded step computes. Rank 0 alone prints and
+writes (saves, `metrics.jsonl`, state snapshots, the wandb run).
 
 SDXL (`ModelBundle.is_xl`, the JAX trainer's): the prompt cache holds
 `PromptEmbedsXL`; each pack carries `inner_added`, `ref_added` and
@@ -39,6 +48,8 @@ draws new `time_ids` every iteration from the run's numpy generator.
 
 from __future__ import annotations
 
+import builtins
+import contextlib
 import dataclasses
 import json
 import threading
@@ -53,12 +64,14 @@ from leco_tpu_torch.lora import (
     LoRASpec,
     count_lora_modules,
     folded_lora,
+    lora_layers,
     lora_mode,
     lora_parameters,
     save_lora_weights,
 )
 from leco_tpu_torch.models.unet import UNet2DConditionModel
 from leco_tpu_torch.ops import schedulers as sched
+from leco_tpu_torch.parallel import distributed
 from leco_tpu_torch.prompts import (
     PromptEmbedsCache,
     PromptEmbedsPair,
@@ -155,10 +168,19 @@ def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
             positive, neutral, uncond = ref_preds.chunk(3, dim=0)
 
         # ---- differentiated target prediction, LoRA on (train_lora.py:244-256)
-        pred = unet(denoised * in_scale, t, pack["target_embeds"], pack.get("target_added"))
-        loss = esd_loss(pred, positive, uncond, neutral, guidance_scale, erase_sign)
+        par = unet.parallel
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if par is None:
+            pred = unet(denoised * in_scale, t, pack["target_embeds"], pack.get("target_added"))
+            loss = esd_loss(pred, positive, uncond, neutral, guidance_scale, erase_sign)
+            loss.backward()
+        else:  # this rank's share of the prediction, its local sums reduced
+            pred, plan = par.call(unet.forward_local, denoised * in_scale, t,
+                                  pack["target_embeds"], pack.get("target_added"), gather=False)
+            loss = par.esd_loss(pred, positive, uncond, neutral, guidance_scale, erase_sign,
+                                plan)
+            loss.backward()
+            par.reduce_lora_grads(lora_layers(unet), plan)
         optimizer.step()
         return loss.detach()
 
@@ -232,15 +254,20 @@ def encode_prompt_pairs(prompts: list[PromptSettings],
 
 
 def _refuse_unported(config: RootConfig) -> None:
-    t = config.train
-    unported = {
-        "train.step_chunk > 1": t.step_chunk > 1,
-        "train.tensor_parallel > 1": t.tensor_parallel > 1,
-        "train.spatial_parallel != 1": t.spatial_parallel != 1,
-    }
-    asked = [k for k, v in unported.items() if v]
-    if asked:
-        raise NotImplementedError(f"not ported: {', '.join(asked)}")
+    if config.train.step_chunk > 1:
+        raise NotImplementedError("not ported: train.step_chunk > 1")
+
+
+def run_generators(seed: Optional[int], device) -> tuple[np.random.Generator, torch.Generator]:
+    """The run's host stream (pair, timesteps_to, resolution draws) and its
+    latent generator, from `seed` shared by every rank (`shared_seed`: with
+    seed None rank 0's draw), so that every rank draws the same schedule
+    and latents."""
+    seed = distributed.shared_seed(seed, device)
+    rng = np.random.default_rng(seed)
+    generator = torch.Generator(device)
+    generator.manual_seed(seed if seed is not None else int(rng.integers(2**31)))
+    return rng, generator
 
 
 def _copy_tree(tree: dict) -> dict:
@@ -253,8 +280,16 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
 
     Returns {"lora": {name: CPU tensor}, "losses": [...], "saved": [paths],
     "ema": {name: CPU tensor} or None}. `on_step(i, loss)` is an optional
-    observer hook."""
+    observer hook. Under torch.distributed every rank runs it; rank 0 alone
+    prints and writes, and its "saved" lists the files (the others' is
+    empty)."""
     _refuse_unported(config)
+    main = distributed.rank() == 0
+
+    def print(*args, **kw):  # noqa: A001 - rank 0 speaks for the run
+        if main:
+            builtins.print(*args, **kw)
+
     metadata = {
         "prompts": ",".join(json.dumps(p.to_dict()) for p in prompts),
         "config": json.dumps(config.to_dict()),
@@ -263,7 +298,7 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
     if config.logging.verbose:
         print(metadata)
     wandb_run = None
-    if config.logging.use_wandb:
+    if config.logging.use_wandb and main:
         try:
             import wandb
 
@@ -272,10 +307,7 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
             print("wandb not installed; continuing without it")
     save_dtype = parse_precision(config.save.precision)
 
-    seed = config.train.seed
-    rng = np.random.default_rng(seed)
-    generator = torch.Generator(bundle.device)
-    generator.manual_seed(seed if seed is not None else int(rng.integers(2**31)))
+    rng, generator = run_generators(config.train.seed, bundle.device)
 
     # ---- prompt encoding, once (train_lora.py:106-137)
     if bundle.encode_fn is None:
@@ -311,8 +343,11 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
     if config.train.resume:
         from leco_tpu_torch.train import checkpoint as ckpt
 
-        restored = ckpt.restore_train_state(state_dir, map_location=bundle.device)
+        # rank 0 alone writes snapshots, so it alone reads one: every rank
+        # resumes from its state, whether or not the ranks share save.path
+        restored = distributed.from_rank0(ckpt.restore_train_state(state_dir) if main else None)
         if restored is not None:
+            restored = ckpt.to_device(restored, bundle.device)
             if set(restored["lora"]) != set(lora):
                 raise ValueError(f"{state_dir}: the snapshot's LoRA tensors are not this "
                                  "model's")
@@ -332,7 +367,8 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
 
     losses: list[float] = []
     saved: list[Path] = []
-    save_path.mkdir(parents=True, exist_ok=True)
+    if main:
+        save_path.mkdir(parents=True, exist_ok=True)
     pack_cache: dict = {}
     # losses stay on the device until `logging.interval` of them are
     # pending, then come to the host in one transfer (the host syncs with
@@ -343,7 +379,9 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
 
     def submit_save(p: Path, tree: dict) -> None:
         """Write `tree` to `p` now, or under `save.async_write` copy it to
-        host tensors here and write it on a thread."""
+        host tensors here and write it on a thread. Only rank 0 writes."""
+        if not main:
+            return
         saved.append(p)
         if not config.save.async_write:
             save_lora_weights(p, tree, bundle.spec, save_dtype, metadata)
@@ -360,7 +398,8 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
         thread.start()
         save_threads.append(thread)
 
-    with open(save_path / "metrics.jsonl", "a") as metrics_file:
+    with (open(save_path / "metrics.jsonl", "a") if main
+          else contextlib.nullcontext()) as metrics_file:
 
         def drain() -> None:
             if not pending:
@@ -378,8 +417,9 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
                 print(f"{j + 1}/{config.train.iterations} Loss*1k: {loss_val * 1000:.4f}")
                 record = {"loss": loss_val, "iteration": j, "lr": lr_at(j),
                           "timesteps_to": j_tsto, "resolution": [j_h, j_w]}
-                metrics_file.write(json.dumps(record) + "\n")
-                metrics_file.flush()
+                if main:
+                    metrics_file.write(json.dumps(record) + "\n")
+                    metrics_file.flush()
                 if wandb_run is not None:
                     wandb_run.log({"loss": loss_val, "iteration": j, "lr": lr_at(j)})
                 if on_step is not None:
@@ -442,7 +482,7 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
                 if ema is not None:
                     submit_save(save_path / f"{config.save.name}_{i}steps_ema.safetensors",
                                 ema)
-                if config.train.save_state:
+                if config.train.save_state and main:
                     from leco_tpu_torch.train import checkpoint as ckpt
 
                     ckpt.save_train_state(
@@ -468,7 +508,7 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
         print("Saving...")
         for p, tree in ((f"{config.save.name}_last.safetensors", lora),
                         (f"{config.save.name}_last_ema.safetensors", ema)):
-            if tree is not None:
+            if tree is not None and main:
                 save_lora_weights(save_path / p, tree, bundle.spec, save_dtype, metadata)
                 saved.append(save_path / p)
     if wandb_run is not None:

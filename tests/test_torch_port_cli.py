@@ -130,17 +130,48 @@ def test_cli_module_refuses_cuda_without_a_gpu(checkpoint, tmp_path):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("option,message", [
-    ("step_chunk: 2", "train.step_chunk > 1"),
-    ("tensor_parallel: 2", "train.tensor_parallel > 1"),
-    ("spatial_parallel: 2", "train.spatial_parallel != 1"),
+@pytest.mark.parametrize("option,message,error", [
+    pytest.param("step_chunk: 2", "train.step_chunk > 1", NotImplementedError,
+                 id="step_chunk: 2-train.step_chunk > 1"),
+    pytest.param("tensor_parallel: 2", "train.tensor_parallel > 1", ValueError,
+                 id="tensor_parallel: 2-train.tensor_parallel > 1"),
+    pytest.param("spatial_parallel: 2", "train.spatial_parallel != 1", ValueError,
+                 id="spatial_parallel: 2-train.spatial_parallel != 1"),
 ])
-def test_cli_refuses_unported_options_before_loading(tmp_path, option, message):
-    """What the port still refuses: the JAX package's device-side step
-    chunking and its multi-chip meshes; the checkpoint is never read."""
+def test_cli_refuses_unported_options_before_loading(tmp_path, option, message, error):
+    """Refused before the checkpoint is read: the JAX package's device-side
+    step chunking (not ported), and a tp or sp mesh that one process cannot
+    hold (tp 2 or sp 2 need a world size they divide: torchrun's)."""
     config = write_run(tmp_path, tmp_path / "not-there", f"\n  {option}")
-    with pytest.raises(NotImplementedError, match=message.replace(">", ".").replace("!", ".")):
+    with pytest.raises(error, match=message.replace(">", ".").replace("!", ".")):
         main(parse_args(["--config_file", str(config), "--device", "cpu"]))
+
+
+PARALLEL_WITHOUT_JAX = """
+import importlib, pkgutil, sys
+for name in ("jax", "flax", "optax", "orbax", "leco_tpu"):
+    sys.modules[name] = None  # any import of it raises ImportError
+import leco_tpu_torch.parallel as parallel
+names = [m.name for m in pkgutil.walk_packages(parallel.__path__, "leco_tpu_torch.parallel.")]
+for name in names:
+    importlib.import_module(name)
+from leco_tpu_torch.parallel import distributed, mesh
+assert distributed.shared_seed(None) is None and mesh.mesh_axes(True, 1, 0, 4) == ("sp", 2)
+print("PARALLEL OK", sorted(names))
+"""
+
+
+def test_parallel_modules_import_without_jax():
+    """Every module of `leco_tpu_torch.parallel` (the rank workers included)
+    imports and runs its rules with JAX and the JAX package blocked."""
+    proc = subprocess.run([sys.executable, "-c", PARALLEL_WITHOUT_JAX], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "PARALLEL OK" in proc.stdout
+    for module in ("collectives", "context", "distributed", "mesh", "sharding", "spatial",
+                   "testing"):
+        assert f"leco_tpu_torch.parallel.{module}" in proc.stdout
 
 
 def test_cli_trains_a_tiny_unreal_recipe(checkpoint, tmp_path):

@@ -137,14 +137,20 @@ def test_cli_module_refuses_cuda_without_a_gpu(checkpoint, tmp_path):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("option,message", [
-    ("step_chunk: 2", "train.step_chunk > 1"),
-    ("tensor_parallel: 2", "train.tensor_parallel > 1"),
-    ("spatial_parallel: 2", "train.spatial_parallel != 1"),
+@pytest.mark.parametrize("option,message,error", [
+    pytest.param("step_chunk: 2", "train.step_chunk > 1", NotImplementedError,
+                 id="step_chunk: 2-train.step_chunk > 1"),
+    pytest.param("tensor_parallel: 2", "train.tensor_parallel > 1", ValueError,
+                 id="tensor_parallel: 2-train.tensor_parallel > 1"),
+    pytest.param("spatial_parallel: 2", "train.spatial_parallel != 1", ValueError,
+                 id="spatial_parallel: 2-train.spatial_parallel != 1"),
 ])
-def test_cli_refuses_unported_options_before_loading(tmp_path, option, message):
+def test_cli_refuses_unported_options_before_loading(tmp_path, option, message, error):
+    """Refused before the checkpoint is read: step chunking (not ported), tp
+    2 on one process (it needs a world size it divides), and sp (SDXL takes
+    data and tensor parallelism only)."""
     config = write_run(tmp_path, tmp_path / "not-there", f"\n  {option}")
-    with pytest.raises(NotImplementedError, match=message.replace(">", ".").replace("!", ".")):
+    with pytest.raises(error, match=message.replace(">", ".").replace("!", ".")):
         main(parse_args(["--config_file", str(config), "--device", "cpu"]))
 
 
