@@ -107,19 +107,28 @@ Phases, each printing its result on a line of its own:
                against all N keys, dK/dV on N / sp key rows against all N
                queries) against their plain versions under phase kernels'
                limits and controls, the level-0 shapes timed beside the plain
-               version and SDPA; then, after phase infer, one train step of the
-               full-width SD1.5 bundle
+               version and SDPA; kernels 4-8 at the shapes the knobs-on meshes
+               hand them (the convs' row windows, GroupNorm-SiLU-conv's with
+               each edge row, the GroupNorm's statistics and apply launches,
+               GEGLU at tp 2, the packed forward at sp 2 / 4 and tp 2), each
+               against its plain version with a control, timed beside it and
+               the library's call where one exists; then, after phase infer,
+               one train step of the full-width SD1.5 bundle
                (bf16, 512 px) on each mesh, dp 2 at batch 2 and 1, sp 2, tp 2
-               (2 ranks) and dp x sp 2 x 2 (4 ranks), every rank on this card
-               over gloo, against the unsharded step on the same weights and
-               latents: the loss, the LoRA gradients at RTOL_GRAD x max|g|
-               (two controls must fail it: the sp K/V gather replaced by the
-               rank's own rows, the halo rows zeroed), bitwise the same LoRA
-               on every rank, each rank's flash launches the unsharded
-               step's, the 4-rank run's memory; then the default recipe
-               through the CLI with a launcher's environment at world size 1
-               (NCCL). Times of ranks that share one card are no parallel
-               speed;
+               (2 ranks) and dp x sp 2 x 2 (4 ranks), and with every fused
+               knob on (LECO_FLASH_PACKED too) sp 2, tp 2 (2 ranks), dp x sp
+               2 x 2 and sp 4 (4 ranks), every rank on this card over gloo,
+               against the unsharded step (knobs off or on) on the same
+               weights and latents: the loss, the LoRA gradients at RTOL_GRAD
+               x max|g| (four controls must fail it: the sp K/V gather
+               replaced by the rank's own rows, the halo rows zeroed, the
+               GroupNorm-SiLU-conv's padding rows through the activation, the
+               GroupNorm kernel's statistics unreduced over sp), bitwise the
+               same LoRA on every rank, each rank's launches of the eight
+               kernels the unsharded step's, the 4-rank run's memory; then the
+               default recipe through the CLI with a launcher's environment at
+               world size 1 (NCCL). Times of ranks that share one card are no
+               parallel speed;
  13. xl      — SDXL at full width, cuDNN deterministic: a random SDXL single
                file (fp16, 6.3 GiB, LDM keys checked against
                tests/fixtures/ldm_unet_keys_sdxl.txt) written one tensor at
@@ -151,7 +160,9 @@ The knobs are the JAX package's: LECO_CONV_BACKEND=gemm, LECO_RESNET_FUSED=1,
 LECO_TPU_FUSED_GN=1, LECO_GEGLU=fused, and LECO_FLASH_PACKED=1. Then a JSON
 line with every kernel's launches, error, times (kernel, plain, library;
 each as `ms` and `device_ms`) and roofline bound (`leco_tpu_torch/kernels/roofline.py`) at the shape where
-the path runs it most, and as the last line
+the path runs it most, each kernel's launches on every parallel mesh, and
+the four entries spatial parallelism adds (the row windows of kernels 5-6,
+the split GroupNorm's two launches) at their sharded shapes, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: the script then exits
 non-zero and prints no result. It needs CUDA and the rest of the repo.
 """
@@ -615,6 +626,23 @@ def kernel_times(kernel_fn, plain_fn, library_fn=None, rotated=None) -> dict:
     return out
 
 
+def row_times(fns, bound: dict, rotate=None) -> dict:
+    """`kernel_times` of (kernel, plain, library) `fns`; for a row bound by
+    bytes, `rotate` = (input, fns_of), where fns_of(copy) gives the three
+    calls on one copy of the input, and `device_ms` cycles over enough
+    copies to exceed twice the L2, so that each call reads its input from
+    device memory."""
+    from leco_tpu_torch.kernels import timing
+
+    if rotate is None or bound["bound_by"] != "bytes":
+        return kernel_times(*fns)
+    src, fns_of = rotate
+    copies = [src.clone() for _ in range(timing.rotation_count(src.numel() * src.element_size()))]
+    per_copy = [fns_of(c) for c in copies]
+    return {**kernel_times(*fns, [[f[i] for f in per_copy] for i in range(3)]),
+            "l2_rotation_copies": len(copies)}
+
+
 def warm_up_clocks(device) -> None:
     """Keep the card busy for WARM_UP_SECONDS with bf16 matrix products, so
     that the first kernel timed does not catch its clocks on the way up."""
@@ -882,15 +910,10 @@ def phase_fused_kernels(device) -> dict:
                "limit": limit, "control_err": control_err}
         if FUSED_TIMED.get(name) == tuple(shape[:len(FUSED_TIMED[name])]) and name not in timed:
             bound = roofline.kernel_bound(name, FUSED_TIMED[name])
-            rotated = None
-            if rotate is not None and bound["bound_by"] == "bytes":
-                src, fns_of = rotate
-                copies = [src.clone() for _ in range(
-                    timing.rotation_count(src.numel() * src.element_size()))]
-                per_copy = [fns_of(c) for c in copies]
-                rotated = [[fns[i] for fns in per_copy] for i in range(3)]
-                row["l2_rotation_copies"] = len(copies)
-            timed[name] = kernel_times(kernel_fn, plain_fn, library_fn, rotated)
+            times = row_times((kernel_fn, plain_fn, library_fn), bound, rotate)
+            if "l2_rotation_copies" in times:
+                row["l2_rotation_copies"] = times.pop("l2_rotation_copies")
+            timed[name] = times
             row.update(timed[name], **bound)
         rows.append(row)
         print(json.dumps(row), flush=True)
@@ -2475,16 +2498,28 @@ PARALLEL_RESOLUTION = 512
 PARALLEL_TIMESTEPS_TO = 2
 PARALLEL_LR = 1e-4
 # the multi-rank steps, every rank on this card over gloo: name -> (batch,
-# (inner axis, size), control); the controls must fail the gradient gate
+# (inner axis, size), control, knobs); the controls must fail the gradient
+# gate; `knobs`: every fused knob on (PARALLEL_KNOBS), against the unsharded
+# knobs-on step. sp 4 puts 2 rows a rank at the 8 x 8 level
 PARALLEL_TWO_RANKS = {
-    "dp2_b2": (2, ("tp", 1), None),
-    "dp2_b1": (1, ("tp", 1), None),
-    "sp2_b1": (1, ("sp", 2), None),
-    "tp2_b1": (1, ("tp", 2), None),
-    "sp2_b1_control_kv_local": (1, ("sp", 2), "kv_local"),
-    "sp2_b1_control_halo_zero": (1, ("sp", 2), "halo_zero"),
+    "dp2_b2": (2, ("tp", 1), None, False),
+    "dp2_b1": (1, ("tp", 1), None, False),
+    "sp2_b1": (1, ("sp", 2), None, False),
+    "tp2_b1": (1, ("tp", 2), None, False),
+    "sp2_b1_control_kv_local": (1, ("sp", 2), "kv_local", False),
+    "sp2_b1_control_halo_zero": (1, ("sp", 2), "halo_zero", False),
+    "sp2_b1_knobs": (1, ("sp", 2), None, True),
+    "tp2_b1_knobs": (1, ("tp", 2), None, True),
+    "sp2_b1_knobs_control_gnconv_edge_unmasked": (1, ("sp", 2), "gnconv_edge_unmasked", True),
+    "sp2_b1_knobs_control_gn_stats_local": (1, ("sp", 2), "gn_stats_local", True),
 }
-PARALLEL_FOUR_RANKS = {"dp2_sp2_b1": (1, ("sp", 2), None)}
+PARALLEL_FOUR_RANKS = {"dp2_sp2_b1": (1, ("sp", 2), None, False),
+                       "dp2_sp2_b1_knobs": (1, ("sp", 2), None, True),
+                       "sp4_b1_knobs": (1, ("sp", 4), None, True)}
+PARALLEL_KNOBS = {**FUSED_KNOBS, "LECO_FLASH_PACKED": "1"}
+# the knobs-on case's latents: N(0, 1) scaled by 0.1 in the top half and 1.9
+# in the bottom half, an image whose halves differ (`parallel_case`)
+KNOBS_LATENT_SCALE = (0.1, 1.9)
 # bf16 throughout; the sharded step sums in other orders (GroupNorm's
 # statistics over sp, the row-parallel partials over tp, the LoRA gradients
 # over the ranks), so the loss is held to RTOL_PARALLEL_LOSS of the
@@ -2492,6 +2527,188 @@ PARALLEL_FOUR_RANKS = {"dp2_sp2_b1": (1, ("sp", 2), None)}
 # flash gradient limit)
 RTOL_PARALLEL_LOSS = 2e-2
 PARALLEL_MEMORY_LIMIT_GIB = 60.0
+
+
+# kernels 4-8 at the shapes the knobs-on meshes hand them (SD1.5 at 512 px),
+# each against its plain version with its control (phase kernels_sharded):
+# the row windows (B, Cin, h, W, Cout) of h output rows from h + 2 input
+# rows: the refused resnet convs at sp 2 (levels 0 and 1, 32 and 16 rows a
+# rank; B 2, the references' 3, the target's 1); GroupNorm-SiLU-conv at
+# sp 4 (the 8 x 8 level's 2 rows a rank, once with each edge: the first
+# and last ranks' windows hold one padding row) and sp 2; the GroupNorm's
+# statistics and apply launches at sp 2 (B, C, h, W, eps, silu); GEGLU at
+# tp 2 (N 1280 / 2) and sp 2 (M / 2); the packed forward at sp 2 and 4
+# (N / sp query rows against the gathered N keys) and tp 2 (C / 2, 4 heads)
+SHARDED_CONV_SHAPES = [(2, 320, 32, 64, 320), (2, 640, 16, 32, 640), (3, 320, 32, 64, 320),
+                       (1, 960, 32, 64, 320)]
+SHARDED_GNCONV_SHAPES = [(2, 1280, 2, 8, 1280, True, True), (2, 1280, 2, 8, 1280, False, True),
+                         (2, 1280, 2, 8, 1280, True, False), (2, 2560, 2, 8, 1280, True, True),
+                         (2, 1280, 8, 16, 1280, False, True), (2, 1280, 4, 8, 1280, True, False)]
+SHARDED_GN_SHAPES = [(2, 320, 32, 64, 1e-6, False), (2, 320, 32, 64, 1e-5, True),
+                     (2, 640, 16, 32, 1e-6, False), (2, 1280, 2, 8, 1e-6, False),
+                     (3, 320, 32, 64, 1e-6, False)]
+SHARDED_GEGLU_SHAPES = [(8192, 320, 640, 0), (4096, 320, 640, 4), (2048, 640, 1280, 0),
+                        (4096, 320, 1280, 0)]
+SHARDED_PACKED_SHAPES = [(2, 2048, 4096, 320, 8), (2, 4096, 4096, 160, 4),
+                         (2, 1024, 4096, 320, 8), (3, 2048, 4096, 320, 8)]
+# label -> the shape where it is timed: the four new entries of kernels 5-7
+# (each its own row of the kernels line) and kernels 4 and 8 on their shares
+SHARDED_TIMED = {
+    "conv3x3_rows": (2, 320, 32, 64, 320),
+    "gnconv3x3_rows": (2, 1280, 2, 8, 1280, True, True),
+    "group_norm_stats": (2, 320, 32, 64),
+    "group_norm_apply": (2, 320, 32, 64, 1e-6, False),
+    "geglu_tp2": (8192, 320, 640, 0),
+    "attn_fwd_packed_sp2": (2, 2048, 4096, 320, 8),
+    "attn_fwd_packed_tp2": (2, 4096, 4096, 160, 4),
+}
+SHARDED_KERNEL = {"geglu_tp2": "geglu", "attn_fwd_packed_sp2": PACKED,
+                  "attn_fwd_packed_tp2": PACKED}
+# the entries spatial parallelism adds -> (source, the TPU kernel it replaces)
+SHARDED_ENTRIES = {
+    "conv3x3_rows": KERNELS["conv3x3"],
+    "gnconv3x3_rows": KERNELS["gnconv3x3"],
+    "group_norm_stats": KERNELS["group_norm"],
+    "group_norm_apply": KERNELS["group_norm"],
+}
+
+
+def sharded_fused_checks(device) -> dict:
+    """Kernels 4-8 at the shapes of SHARDED_*_SHAPES, each against its plain
+    version (RTOL_FUSED x max|ref|; the packed forward under the O limit;
+    the statistics, fp32, at 1e-5 x max|ref|) beside a control that must
+    fail it (`testing.*_control`); the SHARDED_TIMED shapes timed beside the
+    plain version and the library's call where one computes the same
+    function (F.conv2d on the window, SDPA), with the roofline bound ->
+    {"worst_abs_err", "timed", "shapes_checked"}."""
+    import torch
+    import torch.nn.functional as F
+
+    from leco_tpu_torch import testing
+    from leco_tpu_torch.kernels import roofline
+    from leco_tpu_torch.ops import conv, geglu, gn_conv
+    from leco_tpu_torch.ops import flash_attention as fa
+    from leco_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device)
+    gen.manual_seed(13)
+
+    def bf16(shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale + shift).to(
+            torch.bfloat16)
+
+    def fp32(shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=device) * scale + shift
+
+    worst = {label: 0.0 for label in SHARDED_TIMED}
+    timed, rows = {}, []
+
+    def held(label, shape, err, limit, control_err, fns, rotate=None):
+        """Check an error against its limit and the control against it; time
+        `fns` (kernel, plain, library) where `shape` is `label`'s timed one;
+        `rotate`: (input, fns_of) for a row bound by bytes."""
+        check(err <= limit, f"{label} error {err} > {limit} at {shape}")
+        check(control_err > limit, f"the {label} limit {limit} passes its control "
+                                   f"({control_err}) at {shape}")
+        worst[label] = max(worst.get(label, 0.0), err)
+        row = {"kernel": label, "shape": list(shape), "max_abs_err": err, "limit": limit,
+               "control_err": control_err}
+        if tuple(shape) == SHARDED_TIMED.get(label) and label not in timed:
+            bound = roofline.kernel_bound(SHARDED_KERNEL.get(label, label), shape)
+            timed[label] = {"shape": list(shape), **row_times(fns, bound, rotate), **bound}
+            row.update(timed[label])
+        rows.append(row)
+        print(json.dumps({"sharded_fused": row}), flush=True)
+
+    def fused_err(got, ref, control):
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()), "non-finite output")
+        limit = RTOL_FUSED * ref.float().abs().max().item()
+        return ((got.float() - ref.float()).abs().max().item(), limit,
+                (control.float() - ref.float()).abs().max().item())
+
+    for b, cin, h, w, cout in SHARDED_CONV_SHAPES:
+        x = bf16((b, cin, h + 2, w))
+        wt, bias = bf16((cout, cin, 3, 3), (9 * cin) ** -0.5), fp32((cout,))
+        bias16 = bias.to(torch.bfloat16)
+        held("conv3x3_rows", (b, cin, h, w, cout),
+             *fused_err(conv.conv3x3_rows(x, wt, bias), conv.conv3x3_rows_plain(x, wt, bias),
+                        testing.conv3x3_rows_control(x, wt, bias)),
+             (lambda: conv.conv3x3_rows(x, wt, bias), lambda: conv.conv3x3_rows_plain(x, wt, bias),
+              lambda: F.conv2d(x, wt, bias16, padding=(0, 1))))
+    for b, cin, h, w, cout, top, bottom in SHARDED_GNCONV_SHAPES:
+        x = bf16((b, cin, h + 2, w))
+        if not top:
+            x[:, :, 0] = 0
+        if not bottom:
+            x[:, :, -1] = 0
+        a, s = fp32((b, cin), 0.1, 1.0), fp32((b, cin), 0.5, 1.0)
+        wt, bias = bf16((cout, cin, 3, 3), (9 * cin) ** -0.5), fp32((cout,))
+        args = (x, a, s, wt, bias, True, top, bottom)
+        held("gnconv3x3_rows", (b, cin, h, w, cout, top, bottom),
+             *fused_err(gn_conv.gnconv3x3_rows(*args), gn_conv.gnconv3x3_rows_plain(*args),
+                        testing.gnconv3x3_rows_control(*args)),
+             (lambda: gn_conv.gnconv3x3_rows(*args), lambda: gn_conv.gnconv3x3_rows_plain(*args),
+              None))
+    for b, c, h, w, eps, silu in SHARDED_GN_SHAPES:
+        x = bf16((b, c, h, w), 3.0, 1.0)
+        scale, bias = fp32((c,), 0.1, 1.0), fp32((c,), 0.1)
+        sums = gn.group_norm_stats(x, 32)
+        ref = gn.group_norm_stats_plain(x, 32)
+        torch.cuda.synchronize()
+        limit = 1e-5 * ref.abs().max().item()
+
+        def stats_fns(t):
+            return (lambda: gn.group_norm_stats(t, 32), lambda: gn.group_norm_stats_plain(t, 32),
+                    None)
+
+        held("group_norm_stats", (b, c, h, w), (sums - ref).abs().max().item(), limit,
+             (testing.group_norm_stats_control(x, 32) - ref).abs().max().item(), stats_fns(x),
+             rotate=(x, stats_fns))
+        # the sums of two ranks' rows, as the sp reduction leaves them
+        sums = 2 * ref
+        count = c // 32 * 2 * h * w
+
+        def apply_fns(t, eps=eps, silu=silu, scale=scale, bias=bias, sums=sums, count=count):
+            return (lambda: gn.group_norm_apply(t, scale, bias, sums, count, eps, silu),
+                    lambda: gn.group_norm_apply_plain(t, scale, bias, sums, count, eps, silu),
+                    None)
+
+        held("group_norm_apply", (b, c, h, w, eps, silu),
+             *fused_err(gn.group_norm_apply(x, scale, bias, sums, count, eps, silu),
+                        gn.group_norm_apply_plain(x, scale, bias, sums, count, eps, silu),
+                        testing.group_norm_apply_control(x, scale, bias, sums, count, eps,
+                                                         silu)),
+             apply_fns(x), rotate=(x, apply_fns))
+    for m, k, n, r in SHARDED_GEGLU_SHAPES:
+        x, wt, bias = bf16((m, k)), bf16((2 * n, k), k**-0.5), fp32((2 * n,))
+        xd, up = (bf16((m, r)), bf16((2 * n, r), 0.1)) if r else (None, None)
+        args = (x, wt, bias, xd, up)
+        held("geglu_tp2" if n == 640 else "geglu_sp2", (m, k, n, r),
+             *fused_err(geglu.geglu_gemm(*args), geglu.geglu_gemm_plain(*args),
+                        testing.geglu_control(*args)),
+             (lambda: geglu.geglu_gemm(*args), lambda: geglu.geglu_gemm_plain(*args), None))
+    for b, nq, nk, c, heads in SHARDED_PACKED_SHAPES:
+        q = bf16((b, nq, c))
+        kk, v = bf16((b, nk, c)), bf16((b, nk, c))
+        scale = (c // heads) ** -0.5
+        shape = (b, nq, nk, c, heads)
+        o = fa.attn_fwd_packed(q, kk, v, heads, scale)
+        torch.cuda.synchronize()
+        o_check = check_o(o, fa.attn_fwd_packed_plain(q, kk, v, heads, scale),
+                          fa.attn_fwd_packed_plain(q, kk[:, :-DROPPED_KEYS],
+                                                   v[:, :-DROPPED_KEYS], heads, scale), shape)
+        q4, k4, v4 = (t.view(b, t.shape[1], heads, c // heads).transpose(1, 2)
+                      for t in (q, kk, v))
+        label = "attn_fwd_packed_tp2" if nq == nk else f"attn_fwd_packed_sp{nk // nq}"
+        held(label, shape, o_check["o"], o_check["o_limit"], o_check["o_control"],
+             (lambda: fa.attn_fwd_packed(q, kk, v, heads, scale),
+              lambda: fa.attn_fwd_packed_plain(q, kk, v, heads, scale),
+              lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)))
+        del q, kk, v, o
+        torch.cuda.empty_cache()
+    check(set(timed) == set(SHARDED_TIMED), f"sharded timed {sorted(timed)}")
+    return {"worst_abs_err": worst, "timed": timed, "shapes_checked": len(rows)}
 
 
 def sharded_kernel_checks(device) -> dict:
@@ -2587,13 +2804,20 @@ def sharded_kernel_checks(device) -> dict:
             shapes.append(row)
             del q, k, v, o, o_ref, o_dropped, got, ref, control
             torch.cuda.empty_cache()
-    return {"shapes": shapes, "worst_abs_err": worst, "timed": timed}
+    return {"shapes": shapes, "worst_abs_err": worst, "timed": timed,
+            "fused": sharded_fused_checks(device)}
 
 
-def parallel_case(batch: int) -> dict:
+def parallel_case(batch: int, knobs: bool = False) -> dict:
     """The multi-rank step's case: the full-width SD1.5 random bundle (bf16,
     seed 0, its lora_up drawn), the van-gogh erase pack and seeded latents
-    at PARALLEL_RESOLUTION, on the CPU (each rank moves it to the card)."""
+    at PARALLEL_RESOLUTION, on the CPU (each rank moves it to the card).
+    The knobs-on meshes' latents are scaled by KNOBS_LATENT_SCALE in the
+    top and the bottom half: a random bundle on N(0, 1) latents makes every
+    row of every feature alike, so that a rank's GroupNorm statistics match
+    the image's to sampling noise and the image's edge rows look like any
+    other, and the two knob controls would stay under the gradient limit
+    (0.87x and 0.90x of it on N(0, 1) latents, PERF.md section 6)."""
     import torch
 
     from leco_tpu_torch.models.unet import sd15_config
@@ -2607,11 +2831,16 @@ def parallel_case(batch: int) -> dict:
     (pair,) = trainer.encode_prompt_pairs([settings], fake_encode_fn(768, "cpu"))
     gen = torch.Generator().manual_seed(100 + batch)
     side = PARALLEL_RESOLUTION // 8
+    latents = torch.randn((batch, 4, side, side), generator=gen)
+    if knobs:
+        top, bottom = KNOBS_LATENT_SCALE
+        latents[:, :, : side // 2] *= top
+        latents[:, :, side // 2:] *= bottom
     return {"config": sd15_config(), "seed": 0, "dtype": torch.bfloat16,
             "res": PARALLEL_RESOLUTION, "max_steps": 50, "timesteps_to": PARALLEL_TIMESTEPS_TO,
             "guidance_scale": pair.guidance_scale, "erase_sign": pair.erase_sign,
             "pack": trainer.build_pack(pair),
-            "latents": torch.randn((batch, 4, side, side), generator=gen)}
+            "latents": latents}
 
 
 def parallel_gate(got: dict, ref: dict) -> dict:
@@ -2662,37 +2891,48 @@ def phase_parallel(device, ckpt: Path, out_dir: Path) -> dict:
     """One step of each mesh of
     PARALLEL_TWO_RANKS and PARALLEL_FOUR_RANKS, every rank on this card over
     gloo (`leco_tpu_torch.parallel.testing`), against the unsharded step on
-    the same weights and latents: the loss, the LoRA gradients (the two
-    controls must fail), bitwise the same LoRA on every rank, each rank's
-    flash launches the unsharded step's; the CLI through NCCL at world size
-    1. No time of the ranks that share the card is a parallel speed."""
+    the same weights and latents, knobs off or on as the mesh's step: the
+    loss, the LoRA gradients (the four controls must fail), bitwise the same
+    LoRA on every rank, each rank's launches of the eight kernels the
+    unsharded step's (a row window counts as its kernel, a split GroupNorm
+    once: its statistics launches as many as its apply launches); the CLI
+    through NCCL at world size 1. No time of the ranks that share the card
+    is a parallel speed."""
     import torch
 
     from leco_tpu_torch.parallel import testing as ptesting
 
-    cases = {b: parallel_case(b) for b in (1, 2)}
+    cases = {"1": parallel_case(1), "2": parallel_case(2), "1_knobs": parallel_case(1, True)}
     refs = {}
-    for b, case in cases.items():
+    for key, case in cases.items():
+        knobs = key.endswith("_knobs")
         unet, spec = ptesting.build_unet(case, device)
         torch.cuda.reset_peak_memory_stats()
-        with torch.backends.cudnn.flags(enabled=True, deterministic=True):  # as the ranks run
-            refs[b] = ptesting.step_once(unet, spec, case, device, PARALLEL_LR)
-        refs[b]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        # cuDNN deterministic, as the ranks run
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True), \
+                environ(PARALLEL_KNOBS if knobs else {}):
+            refs[key] = ptesting.step_once(unet, spec, case, device, PARALLEL_LR)
+        refs[key]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        refs[key]["kernel_launches"] = ptesting.per_kernel(refs[key]["calls"])
         del unet
         torch.cuda.empty_cache()
-    for b, ref in refs.items():  # the unsharded step runs every kernel of the path
-        check(all(ref["calls"][f"launches_{name}"] > 0 for name in FLASH),
-              f"the unsharded batch-{b} step launched {ref['calls']}")
-    print(json.dumps({"parallel_reference": {b: {"loss": r["loss"], "calls": r["calls"],
+    for key, ref in refs.items():  # the unsharded step runs every kernel of the path
+        on_path = ((PACKED, "conv3x3", "gnconv3x3", "group_norm", "geglu")
+                   if key == "1_knobs" else FLASH)
+        check(all(ref["kernel_launches"][name] > 0 for name in on_path),
+              f"the unsharded {key} step launched {ref['calls']}")
+    print(json.dumps({"parallel_reference": {k: {"loss": r["loss"], "calls": r["calls"],
                                                  "peak_mem_gb": r["peak_mem_gb"]}
-                                             for b, r in refs.items()}}), flush=True)
+                                             for k, r in refs.items()}}), flush=True)
 
     results, worlds = {}, {}
     for world, steps in ((2, PARALLEL_TWO_RANKS), (4, PARALLEL_FOUR_RANKS)):
         job = {"kind": "steps", "device": str(device), "lr": PARALLEL_LR, "threads": 2,
-               "cases": {str(b): c for b, c in cases.items()},
-               "steps": {name: {"case": str(b), "mesh": mesh, "control": control}
-                         for name, (b, mesh, control) in steps.items()}}
+               "cases": cases,
+               "steps": {name: {"case": f"{b}_knobs" if knobs else str(b), "mesh": mesh,
+                                "control": control,
+                                "knobs": PARALLEL_KNOBS if knobs else {}}
+                         for name, (b, mesh, control, knobs) in steps.items()}}
         t0 = time.perf_counter()
         ranks = ptesting.spawn(job, world, out_dir / f"parallel_world{world}")
         worlds[world] = {"seconds": time.perf_counter() - t0,
@@ -2701,35 +2941,42 @@ def phase_parallel(device, ckpt: Path, out_dir: Path) -> dict:
                                                 for r in ranks)}
         check(all(not m for m in worlds[world]["foreign_modules"]),
               f"rank processes imported {worlds[world]['foreign_modules']}")
-        for name, (b, mesh, control) in steps.items():
-            ref = refs[b]
+        for name, (b, mesh, control, knobs) in steps.items():
+            ref = refs[f"{b}_knobs" if knobs else str(b)]
             per_rank = []
             for rank, r in enumerate(ranks):
                 res = r[name]
                 gate = parallel_gate(res["grads"], ref["grads"])
                 loss_err = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
                 launches_ = {k: v for k, v in res["calls"].items() if k.startswith("launches_")}
-                want = {k: v for k, v in ref["calls"].items() if k.startswith("launches_")}
+                kernel_launches = ptesting.per_kernel(res["calls"])
+                want = ref["kernel_launches"]
                 if control is None:
                     check(gate["grad_err"] <= gate["grad_limit"],
                           f"{name} rank {rank}: LoRA grads differ by {gate['grad_err']} > "
                           f"{gate['grad_limit']}")
                     check(loss_err <= RTOL_PARALLEL_LOSS,
                           f"{name} rank {rank}: loss {res['loss']} vs {ref['loss']}")
-                    check(launches_ == want, f"{name} rank {rank}: launches {launches_} != {want}")
+                    check(kernel_launches == want and launches_["launches_group_norm_stats"]
+                          == launches_["launches_group_norm_apply"],
+                          f"{name} rank {rank}: launches {launches_} != {want}")
+                    if knobs and mesh[0] == "sp":  # every conv and norm on its sp entry
+                        check(all(launches_[f"launches_{n}"] > 0 for n in SHARDED_ENTRIES),
+                              f"{name} rank {rank}: launches {launches_}")
                 else:
                     check(gate["grad_err"] > gate["grad_limit"],
                           f"{name}: the gradient limit {gate['grad_limit']} passes the control "
                           f"({gate['grad_err']})")
                 per_rank.append({"loss": res["loss"], "loss_rel_err": loss_err, **gate,
-                                 "launches": launches_, "coords": res["coords"],
+                                 "launches": launches_, "kernel_launches": kernel_launches,
+                                 "coords": res["coords"],
                                  "tp_layers": res["tp_layers"],
                                  "peak_mem_gb": res.get("peak_mem_gb")})
             bitwise = all(torch.equal(r[name]["lora"][k], ranks[0][name]["lora"][k])
                           for r in ranks[1:] for k in ranks[0][name]["lora"])
             if control is None:
                 check(bitwise, f"{name}: the ranks' LoRA differ after the step")
-            results[name] = {"world": world, "mesh": mesh, "control": control,
+            results[name] = {"world": world, "mesh": mesh, "control": control, "knobs": knobs,
                              "bitwise_equal_lora": bitwise, "ranks": per_rank}
             print(json.dumps({"parallel_step": {name: results[name]}}), flush=True)
         del ranks
@@ -2739,8 +2986,8 @@ def phase_parallel(device, ckpt: Path, out_dir: Path) -> dict:
           f"{worlds[4]['peak_mem_gb_sum']:.2f} GiB",
           flush=True)
     nccl = parallel_nccl_cli(ckpt, out_dir)
-    return {"references": {b: {"loss": r["loss"], "calls": r["calls"]}
-                                               for b, r in refs.items()},
+    return {"references": {k: {"loss": r["loss"], "calls": r["calls"]}
+                           for k, r in refs.items()},
             "steps": results, "worlds": worlds, "nccl_cli": nccl}
 
 
@@ -2765,7 +3012,8 @@ def main() -> None:
     phase("kernels", kernels)
     # the parallel path's shapes of kernels 1-3 (phase parallel runs the
     # path itself, late, on phase cli's checkpoint)
-    phase("kernels_sharded", sharded_kernel_checks(device))
+    sharded = sharded_kernel_checks(device)
+    phase("kernels_sharded", sharded)
     fused_kernels = phase_fused_kernels(device)
     phase("fused_kernels", fused_kernels)
 
@@ -2812,12 +3060,17 @@ def main() -> None:
     # each kernel's launches come from the run of the path it is on: the
     # flash kernels from the default path, the fused ones from the knobs-on
     # lierla path, the packed one from the CLI's LECO_FLASH_PACKED=1 run
-    # (each driven with the counts at 0 just before it); the flash kernels'
-    # also from each parallel mesh's step, rank 0's
+    # (each driven with the counts at 0 just before it); every kernel's also
+    # from each parallel mesh's step, rank 0's; the entries that spatial
+    # parallelism adds from the knobs-on sp 2 step, rank 0's
     parallel_launches = {
-        name: {mesh: result["ranks"][0]["launches"][f"launches_{name}"]
+        name: {mesh: result["ranks"][0]["kernel_launches"][name]
                for mesh, result in parallel["steps"].items() if result["control"] is None}
-        for name in FLASH}
+        for name in KERNELS}
+    sharded_launches = parallel["steps"]["sp2_b1_knobs"]["ranks"][0]["launches"]
+    fused_sharded = sharded["fused"]
+    sharded_rows = {PACKED: ("attn_fwd_packed_sp2", "attn_fwd_packed_tp2"),
+                    "geglu": ("geglu_tp2",)}
     measured = {**{n: (kernels, train_result) for n in FLASH},
                 PACKED: (kernels, cli["packed"]),
                 **{n: (fused_kernels, train_fused) for n in FUSED}}
@@ -2839,9 +3092,25 @@ def main() -> None:
             # the device's own time per call (torch.profiler), the same three
             **{key: measured[name][0]["timed_ms"][name][key]
                for key in ("device_ms", "plain_device_ms", "library_device_ms")},
-            **({"parallel_launches": parallel_launches[name]} if name in FLASH else {}),
+            "parallel_launches": parallel_launches[name],
+            **({"sharded": {label: fused_sharded["timed"][label]
+                            for label in sharded_rows[name]}} if name in sharded_rows else {}),
         }
         for name, (source, replaces) in KERNELS.items()
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sharded_launches[f"launches_{name}"],
+            "max_abs_err": fused_sharded["worst_abs_err"][name],
+            **{key: fused_sharded["timed"][name][key]
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+                           "plain_device_ms", "library_device_ms")},
+            "shape": fused_sharded["timed"][name]["shape"],
+        }
+        for name, (source, replaces) in SHARDED_ENTRIES.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"]}}), flush=True)

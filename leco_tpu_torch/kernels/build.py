@@ -46,8 +46,16 @@ SIGNATURES = {
     "leco_conv3x3_pack": [_P, _P, _I, _I, _I, _P],
     # x, a, s, w (packed), bias, out, batch, cin, h, w, cout, silu, stream
     "leco_gnconv3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # the row windows: x (batch, cin, h + 2, w) -> out (batch, cout, h, w); gnconv
+    # also takes whether x's first and last rows are image rows (top, bottom)
+    "leco_conv3x3_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "leco_gnconv3x3_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, gamma, beta, y, batch, c, h*w, groups, eps, silu, stream
     "leco_group_norm": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # x, sums (batch * groups, 2), batch, c, h*w, groups, stream
+    "leco_group_norm_stats": [_P, _P, _I, _I, _I, _I, _P],
+    # x, gamma, beta, sums, y, batch, c, h*w, groups, total, eps, silu, stream
+    "leco_group_norm_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     # x, w, bias, xd, up, out, m, k, n, r, stream
     "leco_geglu": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

@@ -1,5 +1,5 @@
 // 3x3, stride-1, pad-1 convolution as an implicit GEMM for Hopper (sm_90a).
-// One core, two entry points:
+// One core, four entry points:
 //
 //   leco_conv3x3    out = conv3x3(x) + bias
 //     Replaces: leco_tpu/ops/conv.py, `_conv_kernel` (reached through
@@ -10,6 +10,14 @@
 //     `_gnconv_call` and `affine_silu_conv`): the GroupNorm collapsed to a
 //     per-(batch, channel) affine, applied with the SiLU to the staged input
 //     tile, so the normalised activation never goes to device memory.
+//   leco_conv3x3_rows, leco_gnconv3x3_rows  the same two on a row window:
+//     x holds one rank's h rows of a taller image with one row of each
+//     neighbour above and below (h + 2 rows, spatial parallelism's halo), and
+//     out the rank's h rows, with no padding in H (W is padded as above).
+//     For gnconv two flags say whether the first and the last row of x are
+//     image rows or the zero padding past the image's edge: a padding row is
+//     0 after the activation, as outside the image in leco_gnconv3x3 (the
+//     TPU kernel's `valid` mask, gn_conv.py:218-228, moved to the window).
 //
 // Layout contract (checked by the Python wrappers): x (B, Cin, H, W) and out
 // (B, Cout, H, W) contiguous bf16 (the port's NCHW), both on 16-byte
@@ -60,6 +68,10 @@
 // - Epilogue: the fp32 bias is added to the registers, rounded once to bf16,
 //   staged in the output's swizzle and written with one TMA store per
 //   warpgroup, clipped at Cout, H and W.
+// - Row windows: the kernel reads input row y0 - 1 + r + off for tile row r
+//   (off 0, or 1 on a window, whose row 0 is the halo above); the rows in
+//   [lo, hi) are live data, the rest load as 0 (outside x: TMA's fill) or
+//   are zeroed after the load (a window's padding rows).
 // - W not a multiple of 8 (SD2.1's 12 x 12 level at 768 px, 4 x 4): no
 //   tensor map of x or out exists (a row stride must be a multiple of 16
 //   bytes), so the fill warps load the centre copy (WB 16) with ordinary
@@ -106,6 +118,12 @@ struct Tile {
   static constexpr int kLines = (kRows + 2) * kChunk;  // lines of a copy
   // + 1024 to align the start to the swizzle pattern
   static constexpr size_t kSmem = 1024 + kSlots * kBTileBytes + kAStages * kATileBytes;
+};
+
+// The rows of x and out: x has `in` rows and out `out`; output row y's
+// centre tap reads input row y + off; input rows [lo, hi) hold image data
+struct Rows {
+  int in, out, off, lo, hi;
 };
 
 // silu(a * x + s), or a * x + s, from the halved affine: h = (a / 2) * x +
@@ -155,7 +173,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                    const __grid_constant__ CUtensorMap wmap,
                    const __grid_constant__ CUtensorMap omap, const bf16* __restrict__ x,
                    const float* __restrict__ bias, const float* __restrict__ aff_a,
-                   const float* __restrict__ aff_s, bf16* __restrict__ out, int cin, int h,
+                   const float* __restrict__ aff_s, bf16* __restrict__ out, int cin, Rows rows,
                    int wd, int cout, int silu, int y_tiles, int x_tiles) {
   using T = Tile<WB>;
   using namespace sm90;
@@ -223,9 +241,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (cc >= 2) mbar_wait(empty(t), ((cc / 2) - 1) & 1);
         mbar_expect_tx(full_c(t), T::kBTileBytes);
         for (int r = 0; r < T::kRows + 2; ++r) {
-          const int yy = y0 - 1 + r;  // a row above the image loads as row h: zeros
+          const int yy = y0 - 1 + r + rows.off;  // a row above x loads as row rows.in: zeros
           tma_load_4d(b_tile(t) + r * T::kBlockBytes, &xmap, full_c(t), x0, ch0 + cc * kChunk,
-                      yy < 0 ? h : yy, b);
+                      yy < 0 ? rows.in : yy, b);
         }
       };
       if (!MANUAL) load_centre(0);
@@ -251,15 +269,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int m = 0; m < kEdgeIters; ++m) {
           const int line = t + m * kFillThreads;
           const int c = ch0 + cc * kChunk + line % kChunk;
-          const int yy = y0 - 1 + line / kChunk;
-          const bool live = line < T::kLines && c < cin && yy >= 0 && yy < h;
+          const int yy = y0 - 1 + line / kChunk + rows.off;
+          const bool live = line < T::kLines && c < cin && yy >= rows.lo && yy < rows.hi;
           edge_a[m] = PROLOGUE && live ? 0.5f * aff_a[b * cin + c] : 0.5f;
           edge_s[m] = PROLOGUE && live ? 0.5f * aff_s[b * cin + c] : 0.f;
 #pragma unroll
           for (int sd = 0; sd < 2; ++sd) {
             const int col = sd == 0 ? x0 - 1 : x0 + WB;
             edge_val[m][sd] = live && col >= 0 && col < wd
-                ? __bfloat162float(x[((static_cast<size_t>(b) * cin + c) * h + yy) * wd + col])
+                ? __bfloat162float(x[((static_cast<size_t>(b) * cin + c) * rows.in + yy) * wd + col])
                 : 0.f;
           }
         }
@@ -276,14 +294,14 @@ __global__ void __launch_bounds__(kThreads, 1)
             const uint32_t off = q * 16;  // where the chunk lies
             const int line = q / kChunksPerLine;  // y_l * 64 + c_l
             const int c = ch0 + cc * kChunk + line % kChunk;
-            const int yy = y0 - 1 + line / kChunk;
+            const int yy = y0 - 1 + line / kChunk + rows.off;
             const int xs = x0 + (swizzle<T::kSwizzleBits>(off) % T::kLineBytes) / 2;
-            const bool live = c < cin && yy >= 0 && yy < h;
+            const bool live = c < cin && yy >= rows.lo && yy < rows.hi;
             uint4 v = make_uint4(0, 0, 0, 0);
             float sa = 0.5f, ss = 0.f;
             if (live) {
               const unsigned short* row = reinterpret_cast<const unsigned short*>(x) +
-                                          ((static_cast<size_t>(b) * cin + c) * h + yy) * wd;
+                                          ((static_cast<size_t>(b) * cin + c) * rows.in + yy) * wd;
               uint32_t* pair = reinterpret_cast<uint32_t*>(&v);
 #pragma unroll
               for (int e = 0; e < 8; ++e) {
@@ -301,21 +319,23 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         } else if (PROLOGUE) {
           // two chunks a step, both loads before either store; TMA's zero
-          // fill is the padding of a dead line, which stays as it is
+          // fill is the padding of a dead line outside x, which stays as it
+          // is; a dead line inside x (a window's padding row) is zeroed
           for (int q0 = t; q0 < kChunksPerCopy; q0 += 2 * kFillThreads) {
             uint4 v[2];
             float sa[2], ss[2];
             int xs[2];
-            bool live[2];
+            bool live[2], loaded[2];
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
               const int q = q0 + u * kFillThreads;
               const uint32_t off = q * 16;
               const int line = q / kChunksPerLine;
               const int c = ch0 + cc * kChunk + line % kChunk;
-              const int yy = y0 - 1 + line / kChunk;
+              const int yy = y0 - 1 + line / kChunk + rows.off;
               xs[u] = x0 + (swizzle<T::kSwizzleBits>(off) % T::kLineBytes) / 2;
-              live[u] = q < kChunksPerCopy && c < cin && yy >= 0 && yy < h;
+              loaded[u] = q < kChunksPerCopy && c < cin && yy >= 0 && yy < rows.in;
+              live[u] = loaded[u] && yy >= rows.lo && yy < rows.hi;
               v[u] = live[u] ? *reinterpret_cast<const uint4*>(centre + off)
                              : make_uint4(0, 0, 0, 0);
               sa[u] = live[u] ? 0.5f * aff_a[b * cin + c] : 0.5f;
@@ -323,9 +343,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
 #pragma unroll
             for (int u = 0; u < 2; ++u)
-              if (live[u])
+              if (loaded[u])
                 *reinterpret_cast<uint4*>(centre + (q0 + u * kFillThreads) * 16) =
-                    activate_chunk<true>(v[u], true, xs[u], wd, sa[u], ss[u], silu);
+                    live[u] ? activate_chunk<true>(v[u], true, xs[u], wd, sa[u], ss[u], silu)
+                            : make_uint4(0, 0, 0, 0);
           }
         }
         fence_proxy_async();
@@ -336,12 +357,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int line = t + m * kFillThreads;
           if (line >= T::kLines) continue;
           const int c = ch0 + cc * kChunk + line % kChunk;
-          const int yy = y0 - 1 + line / kChunk;
+          const int yy = y0 - 1 + line / kChunk + rows.off;
 #pragma unroll
           for (int sd = 0; sd < 2; ++sd) {
             const int col = sd == 0 ? x0 - 1 : x0 + WB;
             float f = edge_val[m][sd];
-            if (PROLOGUE && c < cin && yy >= 0 && yy < h && col >= 0 && col < wd)
+            if (PROLOGUE && c < cin && yy >= rows.lo && yy < rows.hi && col >= 0 && col < wd)
               f = activate(edge_a[m], f, edge_s[m], silu);
             edges[sd][line] = __bfloat16_as_ushort(__float2bfloat16(f));
           }
@@ -482,8 +503,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int co = co_w + fr.r_lo + 8 * hf;
-        if (co >= cout || yy >= h) continue;
-        bf16* dst = out + ((static_cast<size_t>(b) * cout + co) * h + yy) * wd;
+        if (co >= cout || yy >= rows.out) continue;
+        bf16* dst = out + ((static_cast<size_t>(b) * cout + co) * rows.out + yy) * wd;
 #pragma unroll
         for (int e = 0; e < 2; ++e)
           if (xx + e < wd) dst[xx + e] = __float2bfloat16(acc[4 * c + 2 * hf + e] + bv[hf]);
@@ -551,7 +572,7 @@ inline int split_k(long long blocks, int chunks) {
 
 template <bool PROLOGUE, int WB, bool MANUAL>
 cudaError_t launch_tile(const void* x, const void* w, const void* bias, const void* a,
-                        const void* s, void* out, int batch, int cin, int h, int wd, int cout,
+                        const void* s, void* out, int batch, int cin, Rows rows, int wd, int cout,
                         int silu, cudaStream_t stream) {
   using T = Tile<WB>;
   CUtensorMap xmap{}, wmap{}, omap{};
@@ -561,15 +582,15 @@ cudaError_t launch_tile(const void* x, const void* w, const void* bias, const vo
       {cin8 * 2, cuuint64_t(cout) * cin8 * 2, 9 * cuuint64_t(cout) * cin8 * 2},
       {kChunk, kCoutTile, 1, 1}, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err == cudaSuccess && !MANUAL)
-    err = sm90::encode_nchw(&xmap, x, batch, cin, h, wd, WB, kChunk, 1, T::kSwizzle);
+    err = sm90::encode_nchw(&xmap, x, batch, cin, rows.in, wd, WB, kChunk, 1, T::kSwizzle);
   if (err == cudaSuccess && !MANUAL)
-    err = sm90::encode_nchw(&omap, out, batch, cout, h, wd, WB, 64, T::kRows, T::kSwizzle);
+    err = sm90::encode_nchw(&omap, out, batch, cout, rows.out, wd, WB, 64, T::kRows, T::kSwizzle);
   if (err != cudaSuccess) return err;
   auto kernel = conv3x3_kernel<PROLOGUE, WB, MANUAL>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(T::kSmem));
   if (err != cudaSuccess) return err;
-  const int y_tiles = (h + T::kRows - 1) / T::kRows;
+  const int y_tiles = (rows.out + T::kRows - 1) / T::kRows;
   const int x_tiles = (wd + WB - 1) / WB;
   const long long tiles = static_cast<long long>(batch) * y_tiles * x_tiles;
   const int cout_tiles = (cout + kCoutTile - 1) / kCoutTile;
@@ -589,7 +610,7 @@ cudaError_t launch_tile(const void* x, const void* w, const void* bias, const vo
   config.numAttrs = splits > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&config, kernel, xmap, wmap, omap, static_cast<const bf16*>(x),
                            static_cast<const float*>(bias), static_cast<const float*>(a),
-                           static_cast<const float*>(s), static_cast<bf16*>(out), cin, h, wd,
+                           static_cast<const float*>(s), static_cast<bf16*>(out), cin, rows, wd,
                            cout, silu, y_tiles, x_tiles);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -599,20 +620,29 @@ cudaError_t launch_tile(const void* x, const void* w, const void* bias, const vo
 // WB 64 above W 32, 32 above 16, else 16; W % 8 != 0 takes the fill route.
 template <bool PROLOGUE>
 cudaError_t launch(const void* x, const void* w, const void* bias, const void* a, const void* s,
-                   void* out, int batch, int cin, int h, int wd, int cout, int silu,
+                   void* out, int batch, int cin, Rows rows, int wd, int cout, int silu,
                    cudaStream_t stream) {
-  if (batch <= 0 || cin <= 0 || h <= 0 || wd <= 0 || cout <= 0) return cudaErrorInvalidValue;
+  if (batch <= 0 || cin <= 0 || rows.out <= 0 || rows.in <= 0 || wd <= 0 || cout <= 0)
+    return cudaErrorInvalidValue;
   if (wd % 8 != 0)
-    return launch_tile<PROLOGUE, 16, true>(x, w, bias, a, s, out, batch, cin, h, wd, cout, silu,
-                                           stream);
+    return launch_tile<PROLOGUE, 16, true>(x, w, bias, a, s, out, batch, cin, rows, wd, cout,
+                                           silu, stream);
   if (wd > 32)
-    return launch_tile<PROLOGUE, 64, false>(x, w, bias, a, s, out, batch, cin, h, wd, cout, silu,
-                                            stream);
+    return launch_tile<PROLOGUE, 64, false>(x, w, bias, a, s, out, batch, cin, rows, wd, cout,
+                                            silu, stream);
   if (wd > 16)
-    return launch_tile<PROLOGUE, 32, false>(x, w, bias, a, s, out, batch, cin, h, wd, cout, silu,
-                                            stream);
-  return launch_tile<PROLOGUE, 16, false>(x, w, bias, a, s, out, batch, cin, h, wd, cout, silu,
+    return launch_tile<PROLOGUE, 32, false>(x, w, bias, a, s, out, batch, cin, rows, wd, cout,
+                                            silu, stream);
+  return launch_tile<PROLOGUE, 16, false>(x, w, bias, a, s, out, batch, cin, rows, wd, cout, silu,
                                           stream);
+}
+
+// the whole image (pad 1 in H), and the row window of h output rows (x has
+// h + 2: the halo rows; `top` and `bottom` say whether the first and the
+// last are image rows or padding)
+inline Rows padded(int h) { return {h, h, 0, 0, h}; }
+inline Rows window(int h, int top, int bottom) {
+  return {h + 2, h, 1, top ? 0 : 1, bottom ? h + 2 : h + 1};
 }
 
 }  // namespace conv
@@ -620,14 +650,32 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* a
 
 extern "C" int leco_conv3x3(const void* x, const void* w, const void* bias, void* out,
                             int batch, int cin, int h, int wd, int cout, void* stream) {
-  return leco::conv::launch<false>(x, w, bias, nullptr, nullptr, out, batch, cin, h, wd, cout, 0,
+  return leco::conv::launch<false>(x, w, bias, nullptr, nullptr, out, batch, cin,
+                                   leco::conv::padded(h), wd, cout, 0,
                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int leco_gnconv3x3(const void* x, const void* a, const void* s, const void* w,
                               const void* bias, void* out, int batch, int cin, int h, int wd,
                               int cout, int silu, void* stream) {
-  return leco::conv::launch<true>(x, w, bias, a, s, out, batch, cin, h, wd, cout, silu,
+  return leco::conv::launch<true>(x, w, bias, a, s, out, batch, cin, leco::conv::padded(h), wd,
+                                  cout, silu, static_cast<cudaStream_t>(stream));
+}
+
+// x (B, Cin, h + 2, W): the rows of the window; out (B, Cout, h, W)
+extern "C" int leco_conv3x3_rows(const void* x, const void* w, const void* bias, void* out,
+                                 int batch, int cin, int h, int wd, int cout, void* stream) {
+  return leco::conv::launch<false>(x, w, bias, nullptr, nullptr, out, batch, cin,
+                                   leco::conv::window(h, 1, 1), wd, cout, 0,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int leco_gnconv3x3_rows(const void* x, const void* a, const void* s, const void* w,
+                                   const void* bias, void* out, int batch, int cin, int h,
+                                   int wd, int cout, int silu, int top, int bottom,
+                                   void* stream) {
+  return leco::conv::launch<true>(x, w, bias, a, s, out, batch, cin,
+                                  leco::conv::window(h, top, bottom), wd, cout, silu,
                                   static_cast<cudaStream_t>(stream));
 }
 

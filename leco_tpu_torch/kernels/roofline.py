@@ -16,6 +16,7 @@ BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 BYTES_PER_S = 3.35e12  # HBM3
 BF16, FP32 = 2, 4  # bytes per element
+SD_GROUPS = 32  # the UNet's GroupNorm groups: the split GroupNorm's (B, 32, 2) sums
 
 
 def bound_ms(ops: float, nbytes: float, peak: float = BF16_TENSOR_FLOPS) -> float:
@@ -52,11 +53,14 @@ def work(name: str, shape: tuple) -> tuple[float, float, float]:
         b, nq, nk, c, _heads = shape
         return (*_attention(b, nq, nk, c, products=2, q_like=2, k_like=2, rows_fp32=0),
                 BF16_TENSOR_FLOPS)
-    if name in ("conv3x3", "gnconv3x3"):  # (B, Cin, H, W, Cout): 9 taps; x, w, fp32 bias -> y
+    if name in ("conv3x3", "gnconv3x3", "conv3x3_rows", "gnconv3x3_rows"):
+        # (B, Cin, H, W, Cout): 9 taps; x, w, fp32 bias -> y. A row window
+        # (H = h, the output's rows) reads h + 2 input rows
         b, cin, h, w, cout = shape[:5]
+        rows_in = h + 2 if name.endswith("_rows") else h
         ops = 2 * b * h * w * 9 * cin * cout
-        nbytes = (b * cin * h * w + 9 * cin * cout + b * cout * h * w) * BF16 + cout * FP32
-        if name == "gnconv3x3":  # the per-(batch, channel) fp32 affine (a, s)
+        nbytes = (b * cin * rows_in * w + 9 * cin * cout + b * cout * h * w) * BF16 + cout * FP32
+        if name.startswith("gnconv3x3"):  # the per-(batch, channel) fp32 affine (a, s)
             nbytes += 2 * b * cin * FP32
         return ops, nbytes, BF16_TENSOR_FLOPS
     if name == "group_norm":  # (B, C, H, W, eps, silu): x -> y bf16, fp32 scale and bias
@@ -66,6 +70,15 @@ def work(name: str, shape: tuple) -> tuple[float, float, float]:
         # ·scale + bias (4); SiLU: x·sigmoid(x) as negate, exp, add, divide, multiply (5)
         ops = n * (8 + (5 if silu else 0))
         return ops, 2 * n * BF16 + 2 * c * FP32, FP32_FLOPS
+    if name == "group_norm_stats":  # (B, C, H, W): x -> S, SQ fp32 of each (batch, group)
+        b, c, h, w = shape[:4]
+        n = b * c * h * w
+        return n * 4, n * BF16 + 2 * b * SD_GROUPS * FP32, FP32_FLOPS
+    if name == "group_norm_apply":  # (B, C, H, W, eps, silu): x, S, SQ -> y
+        b, c, h, w, _eps, silu = shape
+        n = b * c * h * w
+        ops = n * (4 + (5 if silu else 0))
+        return ops, 2 * n * BF16 + 2 * c * FP32 + 2 * b * SD_GROUPS * FP32, FP32_FLOPS
     if name == "geglu":  # (M, K, N, r): x (M, K) · W (K, 2N) + fp32 bias [+ xd·up] -> (M, N)
         m, k, n, r = shape
         ops = 2 * m * k * 2 * n + 2 * m * r * 2 * n

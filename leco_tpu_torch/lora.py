@@ -37,10 +37,12 @@ at the input's resolution, as the JAX package's `LoRAConv` does.
 
 Under a parallel context (`leco_tpu_torch.parallel`, set by the UNet's
 `set_parallel`), a 3x3 conv whose call has its H split over sp takes its
-neighbours' halo rows (`parallel/spatial.py`), and a Linear that
-`parallel.sharding.shard_unet` cut to a tp share runs column- or
-row-parallel with its LoRA factors sliced to match; without one, nothing
-changes.
+neighbours' halo rows (`parallel/spatial.py`), on the kernels' row-window
+entries where the knobs send it to a kernel (the gates decide on the
+whole image's H), and a Linear that `parallel.sharding.shard_unet` cut to
+a tp share runs column- or row-parallel with its LoRA factors sliced to
+match (the GEGLU kernel on the rank's [value | gate] share); without one,
+nothing changes.
 
 Export writes the A1111-AddNet / kohya layout,
 `lora_unet_<path>.{lora_down.weight, lora_up.weight, alpha}`, to
@@ -294,9 +296,13 @@ class LoRAConv2d(_LoRALayer):
         """May this conv take its input x through the fused GroupNorm-SiLU-
         conv (`forward(x, affine=...)`)? Only a hot 3x3 conv with no LoRA
         branch at all (the JAX package asks its static spec, not the call's
-        mode), at a shape `gn_conv.supports`."""
+        mode), at a shape `gn_conv.supports`: the whole image's, where x
+        holds this rank's rows of it."""
+        b, c, h, w = x.shape
+        if self._halo():
+            h = self.parallel.global_rows(h)
         return (not self.has_lora and self._is_hot_3x3()
-                and gn_conv.supports(x.shape, self.out_channels, x.dtype, x.device))
+                and gn_conv.supports((b, c, h, w), self.out_channels, x.dtype, x.device))
 
     def _halo(self) -> bool:
         """Does this call's input hold only this rank's rows of H?"""
@@ -357,7 +363,7 @@ class LoRAConv2d(_LoRALayer):
                 return y if self.bias is None else y + self.bias.to(dt)[None, :, None, None]
             x = F.interpolate(x, scale_factor=2.0, mode="nearest")
         if halo:
-            return self._halo_conv(x)
+            return self._halo_conv(x, affine)
         if affine is not None:
             a, s = affine
             return gn_conv.affine_silu_conv(
@@ -373,14 +379,24 @@ class LoRAConv2d(_LoRALayer):
             y = y + F.conv2d(h, self.lora_up.to(dt)) * self.lora_scale
         return y
 
-    def _halo_conv(self, x: torch.Tensor) -> torch.Tensor:
+    def _halo_conv(self, x: torch.Tensor, affine=None) -> torch.Tensor:
         """This rank's output rows from its input rows and the halo rows
-        (`parallel/spatial.py`), the LoRA branch on the same rows."""
+        (`parallel/spatial.py`), the LoRA branch on the same rows; the
+        kernels take the routes `forward` gives them, on the row window."""
         dt = x.dtype
+        w = self._weight().to(dt)
         rows, pad = spatial.conv_input(x, self.parallel, self.kernel_size, self.stride,
                                        self.padding)
-        bias = None if self.bias is None else self.bias.to(dt)
-        y = F.conv2d(rows, self._weight().to(dt), bias, self.stride, pad)
+        if affine is not None:
+            a, s = affine
+            return gn_conv.affine_silu_conv(rows.contiguous(), a, s, w, self.bias.float(),
+                                            edges=spatial.edge_rows(self.parallel))
+        if (conv_ops.default_conv_backend() == "gemm" and self._is_hot_3x3()
+                and conv_ops.supports(dt, x.device)):
+            y = conv_ops.conv3x3(rows.contiguous(), w, self.bias.float(), window=True)
+        else:
+            bias = None if self.bias is None else self.bias.to(dt)
+            y = F.conv2d(rows, w, bias, self.stride, pad)
         if self._branch_on():
             h = F.conv2d(rows, self.lora_down.to(dt), None, self.stride, pad)
             y = y + F.conv2d(h, self.lora_up.to(dt)) * self.lora_scale

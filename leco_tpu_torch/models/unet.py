@@ -36,7 +36,8 @@ polynomial gelu rounds through fp32).
 sharded: each call cuts its share of the batch over dp and of H over sp,
 runs the layers on it (3x3 convs with halo rows, GroupNorm statistics and
 self-attention K/V over sp, `parallel/spatial.py`; the tp-sharded Linears of
-`parallel/sharding.py`) and gathers the output. Without it nothing changes.
+`parallel/sharding.py`), the fused knobs' kernels included, and gathers the
+output. Without it nothing changes.
 """
 
 from __future__ import annotations
@@ -190,15 +191,23 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, affine_only: bool = False, temb=None):
+        split = self.parallel is not None and self.parallel.spatial
         if affine_only:
             if temb is None:
                 temb = torch.zeros(x.shape[:2], dtype=torch.float32, device=x.device)
+            if split:
+                return spatial.affine_from_gn(x, self.weight, self.bias, temb, self.groups,
+                                              self.eps, self.parallel)
             return gn_conv.affine_from_gn(x, self.weight, self.bias, temb,
                                           self.groups, self.eps)
-        if self.parallel is not None and self.parallel.spatial:
+        fused = gn_ops.fused_enabled() and gn_ops.supports(x.dtype, x.device)
+        if split and fused:
+            return spatial.fused_group_norm(x, self.weight, self.bias, self.groups, self.eps,
+                                            self.silu, self.parallel)
+        if split:
             return spatial.group_norm(x, self.weight, self.bias, self.groups, self.eps,
                                       self.silu, stat_dtype(x.dtype), self.parallel)
-        if gn_ops.fused_enabled() and gn_ops.supports(x.dtype, x.device):
+        if fused:
             return gn_ops.fused_group_norm(x, self.weight, self.bias, self.groups,
                                            self.eps, self.silu)
         sd = stat_dtype(x.dtype)

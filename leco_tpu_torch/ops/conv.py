@@ -14,6 +14,14 @@ folded into the repack); dw and db are plain, and computed only when asked
 for (the base weights are frozen in LECO training). The knob
 `LECO_CONV_BACKEND=gemm` (read at call time, default "xla") sends the
 UNet's hot 3x3 convs here (`lora.LoRAConv2d`).
+
+Under spatial parallelism a rank holds h rows of the image: its conv reads
+those rows and one halo row of each neighbour, (B, Cin, h + 2, W), and
+writes its h output rows with no padding in H (`conv3x3_rows`, the
+`leco_conv3x3_rows` entry of the same source; `conv3x3(..., window=True)`).
+Its dx is the padded kernel on the gradient padded by a zero row above and
+below, which gives the gradient of all h + 2 input rows; the halo's
+autograd returns the edge rows' share to the neighbours.
 """
 
 from __future__ import annotations
@@ -110,16 +118,26 @@ def pack_weight(weight: torch.Tensor, flip: bool = False) -> torch.Tensor:
     return out
 
 
+def _conv_plain(x, weight, bias, padding):
+    y = F.conv2d(x.float(), weight.to(x.dtype).float(), None, 1, padding)
+    if bias is not None:
+        y = y + bias.float()[None, :, None, None]
+    return y.to(x.dtype)
+
+
 def conv3x3_gemm_plain(x, weight, bias=None, flip: bool = False):
     """`_conv_kernel` (conv.py:66-77): the conv of x with the weights in x's
     dtype, accumulated in fp32, plus the fp32 bias, rounded once. With
     `flip`, the conv with `flip_weight(weight)`."""
     if flip:
         weight = flip_weight(weight)
-    y = F.conv2d(x.float(), weight.to(x.dtype).float(), None, 1, 1)
-    if bias is not None:
-        y = y + bias.float()[None, :, None, None]
-    return y.to(x.dtype)
+    return _conv_plain(x, weight, bias, 1)
+
+
+def conv3x3_rows_plain(x, weight, bias=None):
+    """`conv3x3_gemm_plain` on a row window: x (B, Cin, h + 2, W) ->
+    (B, Cout, h, W), padded in W only."""
+    return _conv_plain(x, weight, bias, (0, 1))
 
 
 def conv_operands(name, x, weight, bias, flip: bool = False):
@@ -165,33 +183,61 @@ def conv3x3_gemm(x, weight, bias=None, flip: bool = False):
     return out
 
 
-KERNEL_WRAPPERS = (conv3x3_gemm,)
+def conv3x3_rows(x, weight, bias=None):
+    """A row window's conv: x (B, Cin, h + 2, W), this rank's h rows with a
+    halo row above and below -> (B, Cout, h, W), padded in W only. Kernel:
+    csrc/conv3x3.cu, `leco_conv3x3_rows`; operands as `conv3x3_gemm`'s."""
+    if not x.is_cuda:
+        return conv3x3_rows_plain(x, weight, bias)
+    name = "conv3x3_rows"
+    b, cin, rows, w, cout = conv_operands(name, x, weight, bias)
+    if rows < 3:
+        raise ValueError(f"{name}: a window of {rows} rows holds no output row")
+    from leco_tpu_torch.kernels.build import library
+
+    packed = pack_weight(weight)
+    out = torch.empty((b, cout, rows - 2, w), dtype=x.dtype, device=x.device)
+    err = library().leco_conv3x3_rows(
+        x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), b, cin, rows - 2, w, cout, launch.stream(x),
+    )
+    launch.raise_on(name, err)
+    conv3x3_rows.launches += 1
+    return out
+
+
+KERNEL_WRAPPERS = (conv3x3_gemm, conv3x3_rows)
 launch.reset(KERNEL_WRAPPERS)
 
 
 class Conv3x3(torch.autograd.Function):
-    """The JAX package's `conv3x3` custom VJP (conv.py:154-190)."""
+    """The JAX package's `conv3x3` custom VJP (conv.py:154-190); with
+    `window`, on a row window (`conv3x3_rows`), whose dx is the padded
+    kernel on the gradient padded by a zero row above and below."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias):
+    def forward(ctx, x, weight, bias, window):
         ctx.save_for_backward(x, weight)
-        ctx.has_bias = bias is not None
-        return conv3x3_gemm(x, weight, bias)
+        ctx.has_bias, ctx.window = bias is not None, window
+        return conv3x3_rows(x, weight, bias) if window else conv3x3_gemm(x, weight, bias)
 
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
-        need_x, need_w, need_b = ctx.needs_input_grad
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
         g = g.contiguous()
-        dx = conv3x3_gemm(g, weight, flip=True) if need_x else None
+        g_rows = F.pad(g, (0, 0, 1, 1)) if ctx.window else g
+        dx = conv3x3_gemm(g_rows, weight, flip=True) if need_x else None
         dw = None
         if need_w:
             dw = torch.nn.grad.conv2d_weight(x.float(), weight.shape, g.float(),
-                                             padding=1).to(weight.dtype)
+                                             padding=(0, 1) if ctx.window else 1
+                                             ).to(weight.dtype)
         db = g.float().sum(dim=(0, 2, 3)) if need_b and ctx.has_bias else None
-        return dx, dw, db
+        return dx, dw, db, None
 
 
-def conv3x3(x, weight, bias=None):
-    """Differentiable 3x3/s1/p1 conv on the kernel."""
-    return Conv3x3.apply(x, weight, bias)
+def conv3x3(x, weight, bias=None, window: bool = False):
+    """Differentiable 3x3/s1/p1 conv on the kernel; with `window`, x is a
+    row window (B, Cin, h + 2, W) and the output its h rows."""
+    return Conv3x3.apply(x, weight, bias, window)

@@ -12,6 +12,12 @@ Layout is the port's NCHW, x (B, C, H, W); the JAX package takes NHWC. The
 knob `LECO_TPU_FUSED_GN=1` (read at call time; the JAX package reads it at
 import) sends the UNet's GroupNorms through `fused_group_norm`: the kernel
 for bf16 CUDA tensors, its plain version for CPU tensors.
+
+Under spatial parallelism a rank holds some rows of every group, so the
+statistics must cover every rank's rows: the kernel then runs as two
+launches, `group_norm_stats` (each (batch, group)'s fp32 S and SQ) and
+`group_norm_apply` (the normalisation with S and SQ over a count given
+with them), and `split_group_norm` reduces the statistics in between.
 """
 
 from __future__ import annotations
@@ -38,30 +44,54 @@ def _bcast(v: torch.Tensor) -> torch.Tensor:
     return v[:, :, None, None]
 
 
+def _sums(x, num_groups: int) -> torch.Tensor:
+    """fp32 per-channel sums of x and x², then group sums -> (B, G, 2)."""
+    b, c = x.shape[:2]
+    xf = x.float()
+    s = xf.sum(dim=(2, 3))
+    sq = (xf * xf).sum(dim=(2, 3))
+    return torch.stack([s.reshape(b, num_groups, -1).sum(-1),
+                        sq.reshape(b, num_groups, -1).sum(-1)], dim=-1)
+
+
+def _normalise(x, scale, bias, sums, count, eps: float, with_silu: bool):
+    """mean = S/n, var = SQ/n − μ² (no clamp), rsqrt(var + eps), the
+    per-channel scale/shift fold, optional SiLU, one rounding."""
+    cg = x.shape[1] // sums.shape[1]
+    mean_g = sums[..., 0] / count
+    var_g = sums[..., 1] / count - mean_g * mean_g
+    inv_g = torch.rsqrt(var_g + eps)
+    mean_c = mean_g.repeat_interleave(cg, dim=1)
+    inv_c = inv_g.repeat_interleave(cg, dim=1)
+    sc = scale.float()[None, :] * inv_c
+    sh = bias.float()[None, :] - mean_c * sc
+    y = x.float() * _bcast(sc) + _bcast(sh)
+    if with_silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
 def group_norm_silu_plain(x, scale, bias, num_groups: int, eps: float,
                           with_silu: bool = True):
     """`_gn_kernel` (group_norm.py:26-73) step for step: fp32 per-channel
     sums of x and x², group sums, var = E[x²] − μ² (no clamp),
     rsqrt(var + eps), the per-channel scale/shift fold, optional SiLU, one
     rounding to x's dtype."""
-    b, c, h, w = x.shape
-    cg = c // num_groups
-    n = h * w * cg
-    xf = x.float()
-    s = xf.sum(dim=(2, 3))
-    sq = (xf * xf).sum(dim=(2, 3))
-    mean_g = s.reshape(b, num_groups, cg).sum(-1) / n
-    sq_g = sq.reshape(b, num_groups, cg).sum(-1) / n
-    var_g = sq_g - mean_g * mean_g
-    inv_g = torch.rsqrt(var_g + eps)
-    mean_c = mean_g.repeat_interleave(cg, dim=1)
-    inv_c = inv_g.repeat_interleave(cg, dim=1)
-    sc = scale.float()[None, :] * inv_c
-    sh = bias.float()[None, :] - mean_c * sc
-    y = xf * _bcast(sc) + _bcast(sh)
-    if with_silu:
-        y = y * torch.sigmoid(y)
-    return y.to(x.dtype)
+    n = x.shape[1] // num_groups * x.shape[2] * x.shape[3]
+    return _normalise(x, scale, bias, _sums(x, num_groups), n, eps, with_silu)
+
+
+def group_norm_stats_plain(x, num_groups: int) -> torch.Tensor:
+    """The first half of `group_norm_silu_plain`: each (batch, group)'s
+    fp32 S and SQ -> (B, G, 2)."""
+    return _sums(x, num_groups)
+
+
+def group_norm_apply_plain(x, scale, bias, sums, count: int, eps: float,
+                           with_silu: bool = True):
+    """The second half: x normalised with `sums` (B, G, 2) fp32 as the
+    S and SQ of `count` elements a group."""
+    return _normalise(x, scale, bias, sums, count, eps, with_silu)
 
 
 def group_norm_silu_ref(x, scale, bias, num_groups: int, eps: float,
@@ -78,6 +108,15 @@ def group_norm_silu_ref(x, scale, bias, num_groups: int, eps: float,
     return y.to(x.dtype)
 
 
+def _check_x(name, x, num_groups: int) -> None:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: dtype {x.dtype} is not the kernel's bfloat16")
+    if x.ndim != 4 or x.shape[1] % num_groups:
+        raise ValueError(f"{name}: shape {tuple(x.shape)} is not (B, C, H, W) "
+                         f"with C a multiple of {num_groups} groups")
+    launch.check(name, "x", x, torch.bfloat16, tuple(x.shape), x.device)
+
+
 def group_norm_silu(x, scale, bias, num_groups: int, eps: float,
                     with_silu: bool = True):
     """GroupNorm(+SiLU) -> x's shape and dtype. Kernel: csrc/group_norm.cu;
@@ -85,16 +124,11 @@ def group_norm_silu(x, scale, bias, num_groups: int, eps: float,
     if not x.is_cuda:
         return group_norm_silu_plain(x, scale, bias, num_groups, eps, with_silu)
     name = "group_norm_silu"
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: dtype {x.dtype} is not the kernel's bfloat16")
-    if x.ndim != 4 or x.shape[1] % num_groups:
-        raise ValueError(f"{name}: shape {tuple(x.shape)} is not (B, C, H, W) "
-                         f"with C a multiple of {num_groups} groups")
+    _check_x(name, x, num_groups)
     b, c, h, w = x.shape
     dev = x.device
     scale = scale.float().contiguous()
     bias = bias.float().contiguous()
-    launch.check(name, "x", x, torch.bfloat16, (b, c, h, w), dev)
     launch.check(name, "scale", scale, torch.float32, (c,), dev)
     launch.check(name, "bias", bias, torch.float32, (c,), dev)
     from leco_tpu_torch.kernels.build import library
@@ -109,7 +143,53 @@ def group_norm_silu(x, scale, bias, num_groups: int, eps: float,
     return y
 
 
-KERNEL_WRAPPERS = (group_norm_silu,)
+def group_norm_stats(x, num_groups: int) -> torch.Tensor:
+    """Each (batch, group)'s S and SQ -> (B, G, 2) fp32. Kernel:
+    csrc/group_norm.cu, `leco_group_norm_stats`."""
+    if not x.is_cuda:
+        return group_norm_stats_plain(x, num_groups)
+    name = "group_norm_stats"
+    _check_x(name, x, num_groups)
+    b, c, h, w = x.shape
+    from leco_tpu_torch.kernels.build import library
+
+    sums = torch.empty((b, num_groups, 2), dtype=torch.float32, device=x.device)
+    err = library().leco_group_norm_stats(x.data_ptr(), sums.data_ptr(), b, c, h * w,
+                                          num_groups, launch.stream(x))
+    launch.raise_on(name, err)
+    group_norm_stats.launches += 1
+    return sums
+
+
+def group_norm_apply(x, scale, bias, sums, count: int, eps: float, with_silu: bool = True):
+    """x normalised (+SiLU) with `sums` (B, G, 2) fp32, the S and SQ of
+    `count` elements a group -> x's shape and dtype. Kernel:
+    csrc/group_norm.cu, `leco_group_norm_apply`."""
+    if not x.is_cuda:
+        return group_norm_apply_plain(x, scale, bias, sums, count, eps, with_silu)
+    name = "group_norm_apply"
+    num_groups = sums.shape[1]
+    _check_x(name, x, num_groups)
+    b, c, h, w = x.shape
+    dev = x.device
+    scale = scale.float().contiguous()
+    bias = bias.float().contiguous()
+    launch.check(name, "scale", scale, torch.float32, (c,), dev)
+    launch.check(name, "bias", bias, torch.float32, (c,), dev)
+    launch.check(name, "sums", sums, torch.float32, (b, num_groups, 2), dev)
+    from leco_tpu_torch.kernels.build import library
+
+    y = torch.empty_like(x)
+    err = library().leco_group_norm_apply(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), sums.data_ptr(), y.data_ptr(), b, c,
+        h * w, num_groups, float(count), float(eps), int(with_silu), launch.stream(x),
+    )
+    launch.raise_on(name, err)
+    group_norm_apply.launches += 1
+    return y
+
+
+KERNEL_WRAPPERS = (group_norm_silu, group_norm_stats, group_norm_apply)
 launch.reset(KERNEL_WRAPPERS)
 
 
@@ -144,4 +224,31 @@ def recompute_grads(fn, ctx, g, *static):
 
 def fused_group_norm(x, scale, bias, num_groups: int, eps: float, with_silu: bool):
     return FusedGroupNorm.apply(x, scale, bias, num_groups, eps, with_silu)
+
+
+class SplitGroupNorm(torch.autograd.Function):
+    """Forward: the statistics launch, `reduce(sums, count)` -> (sums,
+    count) (the sum over the ranks that share the groups), the apply
+    launch. Backward: autograd through `reference(x, scale, bias)`, the
+    same GroupNorm in differentiable plain ops with its statistics reduced
+    alike."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, with_silu, reduce, reference):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.reference = reference
+        count = x.shape[1] // num_groups * x.shape[2] * x.shape[3]
+        sums, count = reduce(group_norm_stats(x, num_groups), count)
+        return group_norm_apply(x, scale, bias, sums, count, eps, with_silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*recompute_grads(ctx.reference, ctx, g), *(None,) * 5)
+
+
+def split_group_norm(x, scale, bias, num_groups: int, eps: float, with_silu: bool,
+                     reduce, reference):
+    """GroupNorm(+SiLU) on the kernel's two launches, the statistics
+    reduced by `reduce` in between (`SplitGroupNorm`)."""
+    return SplitGroupNorm.apply(x, scale, bias, num_groups, eps, with_silu, reduce, reference)
 

@@ -19,24 +19,21 @@ local share (the differentiated target, whose loss is taken from local
 sums: `esd_loss`). `reduce_lora_grads` then gives every rank the full
 gradient.
 
-Under tp or sp the JAX package's fused-kernel knobs are refused
-(`check_knobs`): their kernels would see sharded tensors no test has held
-them to (ROADMAP.md queue 1).
+The JAX package's fused-kernel knobs run under every mesh, as GSPMD runs
+its Pallas calls under any mesh: the kernels take a rank's share where the
+layers of `parallel/` say how (`spatial.py`, `sharding.py`), and a layer
+that decides a route on a shape asks for the whole image's
+(`global_rows`), as the JAX gates see it under jit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import torch
 
 from leco_tpu_torch.parallel import collectives as C
 from leco_tpu_torch.parallel.mesh import DP_AXIS, SP_AXIS, TP_AXIS, ProcessMesh, internal_plan
-
-# the knobs whose kernels have not been held to sharded shapes
-REFUSED_KNOBS = {"LECO_FLASH_PACKED": "1", "LECO_RESNET_FUSED": "1", "LECO_TPU_FUSED_GN": "1",
-                 "LECO_GEGLU": "fused", "LECO_CONV_BACKEND": "gemm"}
 
 
 def attach(module: torch.nn.Module, ctx: "ParallelContext | None") -> None:
@@ -60,7 +57,6 @@ class ParallelContext:
         self.mesh = mesh
         self.levels = levels
         self.spatial = False  # the call in flight has its H split over sp
-        self.check_knobs()
 
     @property
     def dp(self) -> int:
@@ -74,14 +70,10 @@ class ParallelContext:
     def tp(self) -> int:
         return self.mesh.axis_size(TP_AXIS)
 
-    def check_knobs(self) -> None:
-        if self.tp == 1 and self.sp == 1:
-            return
-        for knob, value in REFUSED_KNOBS.items():
-            if os.environ.get(knob) == value:
-                raise NotImplementedError(
-                    f"{knob}={value} under tensor or spatial parallelism is not ported "
-                    "(ROADMAP.md queue 1, the knobs under tp and sp)")
+    def global_rows(self, rows: int) -> int:
+        """The whole image's count of `rows` (H, or tokens: whole image
+        rows) of which the call in flight holds this rank's share."""
+        return rows * self.sp if self.spatial else rows
 
     def plan(self, shape) -> CallPlan:
         spec = internal_plan(shape, self.mesh)
@@ -128,7 +120,6 @@ class ParallelContext:
         """One UNet call `fn(sample, timesteps, ehs, added)` (the local
         forward) on this rank's share -> (the output, global or with
         `gather=False` this rank's share, the plan)."""
-        self.check_knobs()
         plan = self.plan(sample.shape)
         if torch.is_tensor(timesteps) and timesteps.ndim > 0:
             timesteps = self.local(timesteps, plan, spatial=False)

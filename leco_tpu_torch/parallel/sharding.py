@@ -161,7 +161,8 @@ def linear(layer, x: torch.Tensor) -> torch.Tensor:
     rank's share)."""
     group = layer.parallel.mesh.group(TP_AXIS)
     dt = x.dtype
-    down, up = layer.lora_factors()
+    if layer._branch_on():
+        down, up = layer.lora_factors()
     w = layer._weight().to(dt)
     bias = None if layer.bias is None else layer.bias.to(dt)
     if layer.tp_role == COLUMN:

@@ -12,10 +12,16 @@ Jobs (`job["kind"]`):
   * "ops": each sharded layer of `parallel/` (the halo convs, the sp
     GroupNorm and attention, the tp Linears, GEGLU included) forward and
     backward beside the same layer unsharded on the same inputs;
+  * "knob_ops": the same for the fused-kernel knobs' routes (the row-window
+    conv and GroupNorm-SiLU-conv, the split GroupNorm, packed attention over
+    sp; packed attention and GEGLU under tp), each with its kernels' calls,
+    and the two controls that must fail;
   * "steps": one train step per entry of `job["steps"]` on the mesh it
-    names, from the weights, pack and latents of its case -> loss, LoRA
-    gradients, LoRA after the step, flash calls (the kernels' launches on
-    CUDA, their plain versions' calls on the CPU);
+    names, from the weights, pack and latents of its case, with the knobs
+    it names set (`knobs`) and, with `open_gates`, the 128-channel floors of
+    the conv gates lowered to 1 for a tiny model -> loss, LoRA gradients,
+    LoRA after the step, kernel calls (the kernels' launches on CUDA, their
+    plain versions' calls on the CPU);
   * "seed": `shared_seed(None)` and the draws of the run's generators;
   * "resume": a sharded `train()` run, whole and interrupted then resumed.
 
@@ -36,6 +42,16 @@ import torch.nn.functional as F
 
 FOREIGN = ("jax", "jaxlib", "flax", "optax", "leco_tpu", "tests")
 FLASH_PLAIN = ("attn_fwd_plain", "attn_bwd_dq_plain", "attn_bwd_dkv_plain")
+# each kernel module of `leco_tpu_torch.ops` -> its kernels' plain versions
+PLAIN = {
+    "flash_attention": FLASH_PLAIN + ("attn_fwd_packed_plain",),
+    "conv": ("conv3x3_gemm_plain", "conv3x3_rows_plain"),
+    "gn_conv": ("gnconv3x3_plain", "gnconv3x3_rows_plain"),
+    "group_norm": ("group_norm_silu_plain", "group_norm_stats_plain", "group_norm_apply_plain"),
+    "geglu": ("geglu_gemm_plain",),
+}
+# the two controls of the knobs' sp routes, each of which must fail the check
+KNOB_CONTROLS = ("gnconv_edge_unmasked", "gn_stats_local")
 
 
 class Running:
@@ -96,37 +112,82 @@ def patched(module, **attrs):
 
 
 @contextlib.contextmanager
-def counting_flash():
-    """Count the flash route's calls: each kernel wrapper's launches on
-    CUDA, each plain version's calls on the CPU (what the wrappers run
-    there) -> {name: count}, filled when the block ends."""
-    from leco_tpu_torch.ops import flash_attention as fa
+def counting_kernels():
+    """Count every kernel's calls: each kernel wrapper's launches on CUDA
+    (`launches_<wrapper>`), each plain version's calls on the CPU (what the
+    wrappers run there) -> {name: count}, filled when the block ends."""
+    import importlib
 
-    counts = {name: 0 for name in FLASH_PLAIN}
-    real = {name: getattr(fa, name) for name in FLASH_PLAIN}
+    from leco_tpu_torch.kernels import launch
 
-    def counted(name):
-        def fn(*args):
+    modules = {m: importlib.import_module(f"leco_tpu_torch.ops.{m}") for m in PLAIN}
+    counts = {name: 0 for names in PLAIN.values() for name in names}
+
+    def counted(real, name):
+        def fn(*args, **kwargs):
             counts[name] += 1
-            return real[name](*args)
+            return real(*args, **kwargs)
         return fn
 
-    fa.reset_launch_counts()
-    with patched(fa, **{name: counted(name) for name in FLASH_PLAIN}):
+    wrappers = [w for mod in modules.values() for w in mod.KERNEL_WRAPPERS]
+    launch.reset(wrappers)
+    with contextlib.ExitStack() as stack:
+        for m, names in PLAIN.items():
+            mod = modules[m]
+            stack.enter_context(patched(mod, **{n: counted(getattr(mod, n), n) for n in names}))
         yield counts
-    counts.update({f"launches_{k}": v for k, v in fa.launch_counts().items()})
+    counts.update({f"launches_{k}": v for k, v in launch.counts(wrappers).items()})
+
+
+# the eight kernels -> the wrappers that launch each: a row window is the
+# same kernel's other entry, and a split GroupNorm counts once (its apply
+# launch; its statistics launch runs as often)
+KERNEL_ENTRIES = {
+    "attn_fwd": ("attn_fwd",), "attn_bwd_dq": ("attn_bwd_dq",),
+    "attn_bwd_dkv": ("attn_bwd_dkv",), "attn_fwd_packed": ("attn_fwd_packed",),
+    "conv3x3": ("conv3x3_gemm", "conv3x3_rows"),
+    "gnconv3x3": ("gnconv3x3", "gnconv3x3_rows"),
+    "group_norm": ("group_norm_silu", "group_norm_apply"),
+    "geglu": ("geglu_gemm",),
+}
+
+
+def per_kernel(calls: dict, plain: bool = False) -> dict:
+    """`counting_kernels`' counts -> each kernel's launches, or with
+    `plain` its plain versions' calls."""
+    key = "{}_plain" if plain else "launches_{}"
+    return {k: sum(calls[key.format(w)] for w in ws) for k, ws in KERNEL_ENTRIES.items()}
 
 
 def controls(name):
     """A control's fault: "kv_local" replaces the sp K/V gather by the
-    rank's own rows (local-only attention), "halo_zero" zeroes the halo."""
+    rank's own rows (local-only attention), "halo_zero" zeroes the halo,
+    "gnconv_edge_unmasked" sends the zero halo rows past the image's edges
+    through the GroupNorm-SiLU-conv's activation, "gn_stats_local" leaves
+    the GroupNorm kernel's statistics unreduced over sp."""
     from leco_tpu_torch.parallel import spatial
 
     if name == "kv_local":
         return patched(spatial, gather_seq=lambda x, par: x)
     if name == "halo_zero":
         return patched(spatial, halo_rows=lambda x, par: F.pad(x, (0, 0, 1, 1)))
+    if name == "gnconv_edge_unmasked":
+        return patched(spatial, edge_rows=lambda par: (True, True))
+    if name == "gn_stats_local":
+        return patched(spatial, reduce_group_sums=lambda sums, count, par: (sums, count))
     return contextlib.nullcontext()
+
+
+def open_gates():
+    """The conv kernels' 128-channel floors lowered to 1, so that a tiny
+    model's convs take the knobs' kernel routes (the JAX package's tests
+    open its gates alike); the gnconv gate's 4 <= H, W <= 16 stays."""
+    from leco_tpu_torch.ops import conv, gn_conv
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(patched(conv, HOT_MIN_CHANNELS=1))
+    stack.enter_context(patched(gn_conv, MIN_FUSED_CHANNELS=1))
+    return stack
 
 
 def global_rows(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -282,7 +343,7 @@ def run_ops(job: dict) -> dict:
         ("attention_flash_plain_backward", "flash", False, {"LECO_FLASH_BWD": "xla"}),
         ("cross_attention_flash_cross", "flash", True, {"LECO_FLASH_CROSS": "1"}),
     ):
-        with _environ(env), counting_flash() as calls:
+        with _environ(env), counting_kernels() as calls:
             out[name] = _check_layer(attention(backend, cross), tokens, randn(2, 256, 8),
                                      shard_t, gather_t, sp_ctx, sum_sp)
         out[name]["calls"] = dict(calls)
@@ -320,6 +381,116 @@ def run_ops(job: dict) -> dict:
                             **{k: p.grad for k, p in holder.named_parameters()
                                if ".lora_" in k}}
         out[name] = result
+    return out
+
+
+def run_knob_ops(job: dict) -> dict:
+    """The fused knobs' routes of `parallel/`, each beside the same layer
+    unsharded on the same inputs (`_check_layer`) with the kernels' calls
+    of both sides together: under sp (H 8, 4 rows a rank) the row-window
+    conv (c3lier LoRA branch on), a resnet block on GroupNorm-SiLU-conv, the
+    split GroupNorm, self-attention over 256 tokens on the packed kernel;
+    under tp a transformer over 256 tokens with packed attention, the GEGLU
+    kernel and the GroupNorm kernel; the two controls of `KNOB_CONTROLS`."""
+    from leco_tpu_torch.lora import LoRAConv2d, LoRASpec, lora_layers
+    from leco_tpu_torch.models import unet as U
+    from leco_tpu_torch.parallel import collectives as C
+    from leco_tpu_torch.parallel import sharding
+    from leco_tpu_torch.parallel.context import CallPlan, ParallelContext, attach
+    from leco_tpu_torch.parallel.mesh import SP_AXIS, TP_AXIS, ProcessMesh
+
+    device = torch.device(job.get("device", "cpu"))
+    n, r = dist.get_world_size(), dist.get_rank()
+    sp_mesh, tp_mesh = ProcessMesh(SP_AXIS, n, device), ProcessMesh(TP_AXIS, n, device)
+    sp_ctx, tp_ctx = ParallelContext(sp_mesh, levels=1), ParallelContext(tp_mesh, levels=1)
+    sp_group = sp_mesh.group(SP_AXIS)
+    gen = torch.Generator().manual_seed(10)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+
+    def sum_sp(grads):
+        C.sum_tensors(grads, sp_group)
+
+    def check(make, x, grad_out, dim, env, control=None):
+        shard = lambda t: rows(t, dim, r, n)  # noqa: E731
+        unshard = lambda t: global_rows(t, dim, sp_group)  # noqa: E731
+        with _environ(env), open_gates(), controls(control), counting_kernels() as calls:
+            result = _check_layer(make, x, grad_out, shard, unshard, sp_ctx, sum_sp)
+        return {**result, "calls": dict(calls)}
+
+    def seeded(module, seed, std=0.3):
+        torch.manual_seed(seed)
+        for p in module.parameters():
+            torch.nn.init.normal_(p, std=std)
+        return module
+
+    def lora_conv():
+        conv = seeded(LoRAConv2d(8, 8, 3, padding=1), 11, 0.2)
+        g = torch.Generator().manual_seed(12)
+        conv.add_lora(LoRASpec(rank=2, alpha=1.0, network_type="c3lier"), g)
+        conv.lora_up.data = torch.randn(conv.lora_up.shape, generator=g) * 0.2
+        return conv.to(device)
+
+    temb = randn(2, 16)
+
+    class Resnet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.block = seeded(U.ResnetBlock2D(8, 8, 16, 4), 13, 0.2)
+            for norm in (self.block.norm1, self.block.norm2):
+                norm.weight.data += 1.0
+
+        def forward(self, x):
+            return self.block(x, temb)
+
+    def group_norm():
+        norm = seeded(U.GroupNorm(4, 8, 1e-5, silu=True), 14, 0.1)
+        norm.weight.data += 1.0
+        return norm.to(device)
+
+    def attention():
+        holder = _in_transformer(seeded(U.Attention(8, 2, backend="flash"), 15), 16)
+        return holder.to(device).attentions[0]
+
+    x = randn(2, 8, 8, 6)
+    out = {
+        "conv_gemm": check(lora_conv, x, randn(2, 8, 8, 6), 2, {"LECO_CONV_BACKEND": "gemm"}),
+        "resnet_gnconv": check(lambda: Resnet().to(device), x, randn(2, 8, 8, 6), 2,
+                               {"LECO_RESNET_FUSED": "1"}),
+        "group_norm_fused": check(group_norm, x * 3 + 1, randn(2, 8, 8, 6), 2,
+                                  {"LECO_TPU_FUSED_GN": "1"}),
+        "attention_packed": check(attention, randn(2, 256, 8), randn(2, 256, 8), 1,
+                                  {"LECO_FLASH_PACKED": "1"}),
+        "control_gnconv_edge_unmasked": check(lambda: Resnet().to(device), x,
+                                              randn(2, 8, 8, 6), 2, {"LECO_RESNET_FUSED": "1"},
+                                              "gnconv_edge_unmasked"),
+        "control_gn_stats_local": check(group_norm, x * 3 + 1, randn(2, 8, 8, 6), 2,
+                                        {"LECO_TPU_FUSED_GN": "1"}, "gn_stats_local"),
+    }
+
+    # tp 2: 2 heads of 4 over 16 x 16 = 256 tokens, so self-attention takes
+    # the packed kernel on each rank's head; the GEGLU kernel on the rank's
+    # [value | gate] share; the GroupNorm kernel replicated
+    knobs = {"LECO_FLASH_PACKED": "1", "LECO_GEGLU": "fused", "LECO_TPU_FUSED_GN": "1"}
+    x_img, g_img, text = randn(2, 8, 16, 16), randn(2, 8, 16, 16), randn(2, 77, 8)
+    result = {}
+    for side in ("want", "got"):
+        block = seeded(U.Transformer2DModel(8, 2, 1, 8, 2, False, False, "flash"), 17)
+        holder = _in_transformer(block, 18).to(device)
+        if side == "got":
+            result["plan"] = sharding.shard_unet(holder, tp_mesh)
+            attach(holder, tp_ctx)
+        xs = x_img.clone().requires_grad_(True)
+        with _environ(knobs), counting_kernels() as calls:
+            ys = holder.attentions[0](xs, text)
+            (ys * g_img).sum().backward()
+        if side == "got":
+            tp_ctx.reduce_lora_grads(lora_layers(holder), CallPlan(False, False))
+        result[side] = {"y": ys.detach(), "dx": xs.grad,
+                        **{k: p.grad for k, p in holder.named_parameters() if ".lora_" in k}}
+        result[f"calls_{side}"] = dict(calls)
+    out["tp_transformer_knobs"] = result
     return out
 
 
@@ -396,7 +567,7 @@ def step_once(unet, spec, case: dict, device, lr: float) -> dict:
                                    case["max_steps"])
     pack = {k: ({kk: vv.to(device) for kk, vv in v.items()} if isinstance(v, dict)
                 else v.to(device)) for k, v in case["pack"].items()}
-    with counting_flash() as calls:
+    with counting_kernels() as calls:
         loss = step(pack, case["guidance_scale"], case["erase_sign"], case["timesteps_to"],
                     height=case["res"], width=case["res"], latents=case["latents"].to(device))
         if device.type == "cuda":
@@ -422,7 +593,8 @@ def run_steps(job: dict) -> dict:
         mesh = ProcessMesh(*entry["mesh"], device)
         plan = shard_unet(unet, mesh)
         unet.set_parallel(ParallelContext(mesh, len(unet.cfg.block_out_channels)))
-        with controls(entry.get("control")):
+        gates = open_gates() if entry.get("open_gates") else contextlib.nullcontext()
+        with controls(entry.get("control")), _environ(entry.get("knobs", {})), gates:
             out[name] = step_once(unet, spec, case, device, job.get("lr", 1e-4))
         out[name]["tp_layers"] = len(plan)
         out[name]["coords"] = dict(mesh.coords)
@@ -511,4 +683,5 @@ def run_resume(job: dict) -> dict:
             "snapshot_seen": seen}
 
 
-JOBS = {"ops": run_ops, "steps": run_steps, "seed": run_seed, "resume": run_resume}
+JOBS = {"ops": run_ops, "knob_ops": run_knob_ops, "steps": run_steps, "seed": run_seed,
+        "resume": run_resume}

@@ -106,6 +106,40 @@ def group_norm_control(x, scale, bias, num_groups: int, eps: float, with_silu: b
     return y
 
 
+def conv3x3_rows_control(x, weight, bias=None):
+    """The plain row-window conv without its last 64 input channels."""
+    k = x.shape[1] - CONTROL_DROPPED
+    return conv.conv3x3_rows_plain(x[:, :k].contiguous(), weight[:, :k], bias)
+
+
+def gnconv3x3_rows_control(x, a, s, weight, bias, with_silu: bool = True,
+                           top: bool = True, bottom: bool = True):
+    """The plain row-window GroupNorm-SiLU-conv with its padding rows taken
+    for image rows (silu(s) where the padding is 0); for a window with no
+    padding row, without its last 64 input channels."""
+    if not (top and bottom):
+        return gn_conv.gnconv3x3_rows_plain(x, a, s, weight, bias, with_silu, True, True)
+    k = x.shape[1] - CONTROL_DROPPED
+    return gn_conv.gnconv3x3_rows_plain(x[:, :k].contiguous(), a[:, :k], s[:, :k],
+                                        weight[:, :k], bias, with_silu, top, bottom)
+
+
+def group_norm_stats_control(x, num_groups: int):
+    """The plain statistics without x's last image row (a reduction that
+    misses a tile)."""
+    return gn.group_norm_stats_plain(x[:, :, :-1], num_groups)
+
+
+def group_norm_apply_control(x, scale, bias, sums, count: int, eps: float,
+                             with_silu: bool = True):
+    """The plain normalisation with the last group's channels left as the
+    input, unnormalised."""
+    y = gn.group_norm_apply_plain(x, scale, bias, sums, count, eps, with_silu)
+    cg = x.shape[1] // sums.shape[1]
+    y[:, -cg:] = x[:, -cg:]
+    return y
+
+
 def geglu_control(x, weight, bias, xd=None, up=None):
     """The plain GEGLU without the last 64 columns of K."""
     k = x.shape[1] - CONTROL_DROPPED

@@ -38,6 +38,33 @@ HAND_COUNTED = [
 ]
 
 
+# the entries that spatial parallelism adds, at the shapes chip_smoke times
+# them (phase kernels_sharded)
+SHARDED_HAND_COUNTED = [
+    # the conv of 32 output rows from a window of 34 input rows
+    ("conv3x3_rows", (2, 320, 32, 64, 320), 2 * 2 * 32 * 64 * 9 * 320 * 320,
+     2 * 320 * 34 * 64 * 2 + 9 * 320 * 320 * 2 + 2 * 320 * 32 * 64 * 2 + 320 * 4,
+     roofline.BF16_TENSOR_FLOPS),
+    # 2 output rows from 4, the affine a, s
+    ("gnconv3x3_rows", (2, 1280, 2, 8, 1280, True, True), 2 * 2 * 2 * 8 * 9 * 1280 * 1280,
+     2 * 1280 * 4 * 8 * 2 + 9 * 1280 * 1280 * 2 + 2 * 1280 * 16 * 2 + 1280 * 4
+     + 2 * 2 * 1280 * 4, roofline.BF16_TENSOR_FLOPS),
+    # x, x·x and two sums an element; x bf16, the (2, 32, 2) sums fp32
+    ("group_norm_stats", (2, 320, 32, 64), 4 * 2 * 320 * 2048,
+     2 * 320 * 2048 * 2 + 2 * 2 * 32 * 4, roofline.FP32_FLOPS),
+    # 4 an element, 5 more for the SiLU; x, y bf16, scale, bias and the sums fp32
+    ("group_norm_apply", (2, 320, 32, 64, 1e-6, False), 4 * 2 * 320 * 2048,
+     2 * 2 * 320 * 2048 * 2 + 2 * 320 * 4 + 2 * 2 * 32 * 4, roofline.FP32_FLOPS),
+]
+
+
+@pytest.mark.parametrize("name,shape,ops,nbytes,peak", SHARDED_HAND_COUNTED,
+                         ids=[row[0] for row in SHARDED_HAND_COUNTED])
+def test_sharded_work_matches_the_hand_count(name, shape, ops, nbytes, peak):
+    assert roofline.work(name, shape) == (ops, nbytes, peak)
+    assert tuple(chip_smoke.SHARDED_TIMED[name]) == shape
+
+
 @pytest.mark.parametrize("name,shape,ops,nbytes,peak", HAND_COUNTED,
                          ids=[row[0] for row in HAND_COUNTED])
 def test_work_matches_the_hand_count(name, shape, ops, nbytes, peak):

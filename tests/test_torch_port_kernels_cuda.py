@@ -1,6 +1,7 @@
 """The port's CUDA kernels (flash attention: the forward, 3-d and packed,
 and the dQ and dK/dV backward pair; the fused conv, GroupNorm-conv,
-GroupNorm and GEGLU kernels) against their plain versions, on the card.
+GroupNorm and GEGLU kernels, the convs' row windows and the GroupNorm's
+statistics and apply launches) against their plain versions, on the card.
 Marked `cuda`: without a CUDA device every test here skips. Run them on a
 GPU machine with
 
@@ -404,6 +405,111 @@ def test_gnconv_core_real_zero_inside_the_image_becomes_silu_s(device, h, w):
     bias = torch.randn((192,), generator=gen, device=device)
     _close(gn_conv.gnconv3x3(x, a, s, wt, bias), gn_conv.gnconv3x3_plain(x, a, s, wt, bias),
            testing.gnconv3x3_control(x, a, s, wt, bias))
+
+
+# the row windows of spatial parallelism (h rows a rank + 2 halo rows):
+# SD1.5 at 512 px over sp 2 and 4 (every tile width: W 64, 32, 16 and 8),
+# h = 1 and 2 (less than a tile's rows), W 12 (the fill route), B 1 and 3
+ROW_WINDOW_SHAPES = [
+    (2, 320, 32, 64, 320), (2, 640, 8, 32, 640), (2, 1280, 4, 16, 1280), (2, 1280, 2, 8, 1280),
+    (1, 2560, 2, 8, 1280), (3, 320, 16, 64, 320), (1, 320, 1, 12, 320), (2, 640, 6, 12, 640),
+]
+# (top, bottom): whether the window's first and last rows are image rows
+EDGES = [(True, True), (False, True), (True, False), (False, False)]
+
+
+def _window(x, start, h):
+    """Rows start - 1 .. start + h of the image x, zero rows past its edges."""
+    return torch.nn.functional.pad(x, (0, 0, 1, 1))[:, :, start:start + h + 2].contiguous()
+
+
+@pytest.mark.parametrize("b,cin,h,w,cout", ROW_WINDOW_SHAPES)
+def test_conv_rows_match_plain_and_the_padded_kernel(device, b, cin, h, w, cout):
+    """A window of an image of 3h rows at its middle: the row-window kernel
+    against its plain version (with a control), against the padded kernel's
+    rows of the whole image, and its dx through the padded kernel."""
+    gen = torch.Generator(device).manual_seed(20)
+    image = _bf16(gen, (b, cin, 3 * h, w), device)
+    x = _window(image, h, h)
+    wt = _bf16(gen, (cout, cin, 3, 3), device, (9 * cin) ** -0.5)
+    bias = torch.randn((cout,), generator=gen, device=device)
+    before = (conv.conv3x3_rows.launches, conv.conv3x3_gemm.launches)
+    got = conv.conv3x3_rows(x, wt, bias)
+    torch.cuda.synchronize()
+    assert conv.conv3x3_rows.launches - before[0] == 1
+    _close(got, conv.conv3x3_rows_plain(x, wt, bias), testing.conv3x3_rows_control(x, wt, bias))
+    _close(got, conv.conv3x3_gemm(image, wt, bias)[:, :, h:2 * h].contiguous())
+    assert torch.equal(conv.conv3x3_rows(x, wt, bias), got)  # the same bits
+    g = _bf16(gen, (b, cout, h, w), device)
+    xg = x.clone().requires_grad_()
+    conv.conv3x3(xg, wt, bias, window=True).backward(g)
+    torch.cuda.synchronize()
+    assert conv.conv3x3_gemm.launches - before[1] == 2  # the whole image above, and the dx
+    _close(xg.grad, conv.conv3x3_gemm_plain(torch.nn.functional.pad(g, (0, 0, 1, 1)),
+                                            conv.flip_weight(wt)))
+
+
+@pytest.mark.parametrize("top,bottom", EDGES)
+@pytest.mark.parametrize("b,cin,h,w,cout", ROW_WINDOW_SHAPES)
+def test_gnconv_rows_match_plain_with_each_edge(device, b, cin, h, w, cout, top, bottom):
+    """The window's first (last) row is the image's padding unless `top`
+    (`bottom`): the padding stays 0 after the activation, so the window's
+    rows equal the padded kernel's rows of the image it is cut from."""
+    gen = torch.Generator(device).manual_seed(21)
+    rows = h + int(top) * h + int(bottom) * h
+    image = _bf16(gen, (b, cin, rows, w), device)
+    start = h if top else 0
+    x = _window(image, start, h)
+    a, s = _gn_affine(gen, x, device)
+    s = s + 1  # silu(s) far from 0, so an unmasked padding row shows
+    wt = _bf16(gen, (cout, cin, 3, 3), device, (9 * cin) ** -0.5)
+    bias = torch.randn((cout,), generator=gen, device=device)
+    before = gn_conv.gnconv3x3_rows.launches
+    got = gn_conv.gnconv3x3_rows(x, a, s, wt, bias, True, top, bottom)
+    torch.cuda.synchronize()
+    assert gn_conv.gnconv3x3_rows.launches - before == 1
+    _close(got, gn_conv.gnconv3x3_rows_plain(x, a, s, wt, bias, True, top, bottom),
+           testing.gnconv3x3_rows_control(x, a, s, wt, bias, True, top, bottom))
+    _close(got, gn_conv.gnconv3x3(image, a, s, wt, bias)[:, :, start:start + h].contiguous())
+    assert torch.equal(gn_conv.gnconv3x3_rows(x, a, s, wt, bias, True, top, bottom), got)
+
+
+# two ranks' rows of the GroupNorm's images at sp 2 (SD1.5 at 512 px), the
+# mid block at sp 4, a ragged 3 x 5 share, the 960-channel up block
+GN_SPLIT_SHAPES = [
+    (2, 320, 32, 64, 1e-6, False), (2, 320, 32, 64, 1e-5, True), (2, 640, 8, 32, 1e-6, False),
+    (2, 1280, 2, 8, 1e-6, False), (1, 320, 3, 5, 1e-5, True), (2, 960, 32, 64, 1e-5, True),
+]
+
+
+@pytest.mark.parametrize("b,c,h,w,eps,silu", GN_SPLIT_SHAPES)
+def test_group_norm_split_matches_plain_and_the_one_launch_kernel(device, b, c, h, w, eps,
+                                                                  silu):
+    """Two ranks' rows of one image: the statistics launch on each against
+    its plain version (fp32, 1e-5 of the largest sum, with a control), the
+    sums added and the apply launch on each against its plain version; the
+    two halves together against the one-launch kernel on the image."""
+    gen = torch.Generator(device).manual_seed(22)
+    image, scale, bias = _gn_inputs(gen, device, b, c, 2 * h, w)
+    halves = [t.contiguous() for t in image.chunk(2, dim=2)]
+    before = (gn.group_norm_stats.launches, gn.group_norm_apply.launches)
+    stats = [gn.group_norm_stats(x, 32) for x in halves]
+    torch.cuda.synchronize()
+    for x, got in zip(halves, stats):
+        ref = gn.group_norm_stats_plain(x, 32)
+        limit = 1e-5 * ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= limit
+        assert (testing.group_norm_stats_control(x, 32) - ref).abs().max().item() > limit
+    sums, count = stats[0] + stats[1], c // 32 * 2 * h * w
+    ys = [gn.group_norm_apply(x, scale, bias, sums, count, eps, silu) for x in halves]
+    torch.cuda.synchronize()
+    assert (gn.group_norm_stats.launches - before[0], gn.group_norm_apply.launches - before[1]) \
+        == (2, 2)
+    for x, y in zip(halves, ys):
+        _close(y, gn.group_norm_apply_plain(x, scale, bias, sums, count, eps, silu),
+               testing.group_norm_apply_control(x, scale, bias, sums, count, eps, silu))
+    _close(torch.cat(ys, dim=2), gn.group_norm_silu(image, scale, bias, 32, eps, silu))
+    assert torch.equal(gn.group_norm_stats(halves[0], 32), stats[0])  # the same bits
 
 
 @pytest.mark.parametrize("cout,cin", [(320, 320), (1280, 2560), (320, 192), (24, 20)])

@@ -13,8 +13,9 @@ tests/conftest.py forces.
   * the rank grid against `make_mesh_2d` / `get_mesh_dp_sp`'s device grids;
   * the CLIs' mesh choice (sp auto, the tp/sp exclusivity);
   * `shared_seed` at world size 1 against `_multihost_shared_seed`;
-  * the port's own rules: the fused knobs refused under tp and sp, and a
-    call whose H does not divide sp at every level run with H replicated.
+  * the port's own rules: the fused knobs run under dp, sp and tp, each on
+    its kernel route, and a call whose H does not divide sp at every level
+    run with H replicated.
 """
 
 import types
@@ -29,6 +30,8 @@ from flax.traverse_util import flatten_dict
 from leco_tpu.parallel import mesh as jax_mesh
 from leco_tpu.parallel import sharding as jax_sharding
 from leco_tpu.train import trainer as jax_trainer
+from leco_tpu_torch.lora import LoRAConv2d
+from leco_tpu_torch.models import unet as U
 from leco_tpu_torch.models.convert import _module_name
 from leco_tpu_torch.models.unet import (
     UNet2DConditionModel,
@@ -38,6 +41,7 @@ from leco_tpu_torch.models.unet import (
     tiny_unet_config,
 )
 from leco_tpu_torch.parallel import context, distributed, sharding
+from leco_tpu_torch.parallel import testing as ptesting
 from leco_tpu_torch.parallel import mesh as port_mesh
 from leco_tpu_torch.testing import tiny_xl_unet_config
 from tests.test_torch_port_unet import port_to_flax
@@ -99,24 +103,71 @@ def test_geglu_share_takes_matching_value_and_gate_columns():
 
 
 def _mesh(dp: int, sp: int, tp: int = 1):
+    """A mesh of one process that answers for `dp` x `sp` x `tp` ranks: this
+    rank is at index 0 of each axis, and every axis's group is None, so the
+    collectives are the identity (a layer's kernel route shows on one
+    process)."""
     sizes = {port_mesh.DP_AXIS: dp, port_mesh.SP_AXIS: sp, port_mesh.TP_AXIS: tp}
-    return types.SimpleNamespace(axis_size=lambda name: sizes.get(name, 1))
+    return types.SimpleNamespace(axis_size=lambda name: sizes.get(name, 1),
+                                 axis_index=lambda name: 0, group=lambda name: None)
 
 
-@pytest.mark.parametrize("knob,value", sorted(context.REFUSED_KNOBS.items()))
-@pytest.mark.parametrize("dp,sp,tp,refused", [(2, 1, 1, False), (1, 2, 1, True),
-                                              (1, 1, 2, True)])
-def test_fused_knobs_are_refused_under_tp_and_sp(knob, value, dp, sp, tp, refused,
-                                                 monkeypatch):
-    """No knob changes route silently: under tp or sp each fused knob
-    raises NotImplementedError, naming its ROADMAP item; under dp alone
-    every rank's shapes are an unsharded step's and the knob runs."""
-    monkeypatch.setenv(knob, value)
-    if refused:
-        with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP"):
-            context.ParallelContext(_mesh(dp, sp, tp), levels=2)
-    else:
-        context.ParallelContext(_mesh(dp, sp, tp), levels=2).check_knobs()
+def _in_attentions(layer):
+    holder = torch.nn.Module()
+    holder.attentions = torch.nn.ModuleList([layer])
+    return holder
+
+
+# knob -> (the layer it routes, its input at H 8 (4 rows a rank under sp 2),
+# the plain versions it must call under dp or tp, and under sp)
+KNOB_LAYERS = {
+    "LECO_CONV_BACKEND": (lambda: LoRAConv2d(8, 8, 3, padding=1), (1, 8, 8, 8),
+                          {"conv3x3_gemm_plain"}, {"conv3x3_rows_plain"}),
+    "LECO_RESNET_FUSED": (lambda: U.ResnetBlock2D(8, 8, 16, 4), (1, 8, 8, 8),
+                          {"gnconv3x3_plain"}, {"gnconv3x3_rows_plain"}),
+    "LECO_TPU_FUSED_GN": (lambda: U.GroupNorm(4, 8, 1e-5, silu=True), (1, 8, 8, 8),
+                          {"group_norm_silu_plain"},
+                          {"group_norm_stats_plain", "group_norm_apply_plain"}),
+    "LECO_GEGLU": (lambda: _in_attentions(U.BasicTransformerBlock(8, 2, 8, False, "xla")),
+                   (1, 64, 8), {"geglu_gemm_plain"}, {"geglu_gemm_plain"}),
+    "LECO_FLASH_PACKED": (lambda: _in_attentions(U.Attention(8, 2, backend="flash")),
+                          (1, 256, 8), {"attn_fwd_packed_plain"}, {"attn_fwd_packed_plain"}),
+}
+KNOB_VALUES = {"LECO_FLASH_PACKED": "1", "LECO_RESNET_FUSED": "1", "LECO_TPU_FUSED_GN": "1",
+               "LECO_GEGLU": "fused", "LECO_CONV_BACKEND": "gemm"}
+
+
+@pytest.mark.parametrize("knob,value", sorted(KNOB_VALUES.items()))
+@pytest.mark.parametrize("dp,sp,tp", [(2, 1, 1), (1, 2, 1), (1, 1, 2)])
+def test_fused_knobs_run_under_every_mesh(knob, value, dp, sp, tp, monkeypatch):
+    """With every knob set, the context accepts each mesh, and the knob's
+    layer takes its kernel route on this rank's share: under sp the row
+    windows and the split GroupNorm (the gates on the global H: 4 rows a
+    rank of an 8-row image), under tp the GEGLU and packed kernels on the
+    sharded Linears, under dp the unsharded kernels (the conv gates'
+    128-channel floors lowered to the tiny layers' 8)."""
+    for k, v in KNOB_VALUES.items():
+        monkeypatch.setenv(k, v)
+    ctx = context.ParallelContext(_mesh(dp, sp, tp), levels=2)
+    make, shape, unsharded, split = KNOB_LAYERS[knob]
+    layer = make()
+    x = torch.randn(shape)
+    if sp > 1:  # this rank's rows (tokens: whole rows)
+        dim = 2 if x.ndim == 4 else 1
+        x = x.narrow(dim, 0, x.shape[dim] // sp)
+    if tp > 1:  # the transformer layers cut to their tp shares; convs and norms replicated
+        plan = sharding.shard_unet(layer, ctx.mesh)
+        assert bool(plan) == hasattr(layer, "attentions"), knob
+    context.attach(layer, ctx)
+    ctx.spatial = sp > 1
+    module = layer.attentions[0] if hasattr(layer, "attentions") else layer
+    args = (torch.randn(1, 16),) if knob == "LECO_RESNET_FUSED" else ()
+    if knob == "LECO_GEGLU":
+        args = (torch.randn(1, 77, 8),)
+    with ptesting.open_gates(), ptesting.counting_kernels() as calls:
+        module(x, *args)
+    called = {k for k, v in calls.items() if v and not k.startswith("launches_")}
+    assert called == (split if sp > 1 else unsharded), (knob, called)
 
 
 @pytest.mark.parametrize("levels,h,spatial", [(2, 16, True), (2, 18, False), (4, 64, True),

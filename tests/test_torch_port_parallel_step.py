@@ -287,12 +287,38 @@ def _free_port() -> int:
 def test_cli_on_two_ranks_writes_once_and_matches_one_process(checkpoint, tmp_path):  # noqa: F811
     """sp 2 over 2 CPU ranks set by the environment: rank 0 alone prints and
     writes; its save is the single-process CLI's within the step tolerance."""
+    _two_rank_cli(checkpoint, tmp_path)
+
+
+def test_cli_on_two_ranks_with_the_knobs_matches_one_process(checkpoint, tmp_path,  # noqa: F811
+                                                             monkeypatch):
+    """The same with the four fused knobs set for both runs: the tiny UNet's
+    GroupNorms and GEGLUs take the kernels' routes (its convs stay under
+    the gates' 128-channel floors), on each rank's rows. AdamW with eps 1,
+    far above every gradient, so that each update is near linear in the
+    gradients and the save carries their bound: at eps 1e-8 a near-zero
+    gradient (a sum whose ranks' partials round apart, as the GroupNorm
+    kernel's E[x²] − mean² over two ranks' sums does) moves its weight by
+    lr·g / (|g| + eps), whose slope lr / eps makes its rounding a large
+    share of lr."""
+    knobs = {"LECO_CONV_BACKEND": "gemm", "LECO_RESNET_FUSED": "1", "LECO_TPU_FUSED_GN": "1",
+             "LECO_GEGLU": "fused"}
+    for k, v in knobs.items():
+        monkeypatch.setenv(k, v)
+    _two_rank_cli(checkpoint, tmp_path, '\n  optimizer_args: "eps=1.0"')
+
+
+def _two_rank_cli(checkpoint, tmp_path, extra_train: str = ""):  # noqa: F811
+    """The CLI on one process, then on 2 ranks at sp 2, with `extra_train`
+    in both configs' `train:` and the environment as it is; rank 0 alone
+    prints and writes, and its losses and save are the single process's."""
     one = tmp_path / "one"
     one.mkdir()
-    main(parse_args(["--config_file", str(write_run(one, checkpoint)), "--device", "cpu"]))
+    main(parse_args(["--config_file", str(write_run(one, checkpoint, extra_train)),
+                     "--device", "cpu"]))
     two = tmp_path / "two"
     two.mkdir()
-    config = write_run(two, checkpoint, "\n  spatial_parallel: 2")
+    config = write_run(two, checkpoint, extra_train + "\n  spatial_parallel: 2")
     port = str(_free_port())
     procs = []
     for rank in range(2):
