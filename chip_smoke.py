@@ -42,11 +42,13 @@ Phases, each printing its result on a line of its own:
   6. unet_fused — one full-width 512 px forward with the fused
                configuration's knobs on against the knobs off, with the
                per-forward launch count of every kernel;
-  7. profile — one train step under torch.profiler (device busy share, the
-               kernels that take the time), and the step's time with the
+  7. profile — one train step under torch.profiler, read by
+               `leco_tpu_torch/scripts/profile_step.analyze` (device busy
+               and idle share, the kernels that take the time, the time by
+               category and by UNet component), and the step's time with the
                kernels against plain attention; then the same step with the
-               knobs on: its busy share, each fused kernel's device time and
-               share of it, and its time against the knobs off;
+               knobs on, read the same way (each fused kernel's device time
+               and share of it), and its time against the knobs off;
   8. train   — three iterations of `leco_tpu_torch.train.trainer.train()` on a
                random full-width SD1.5 bundle (bf16, rank-4 lierla, DDIM,
                512 px, batch 1, the van-gogh erase prompt), with every
@@ -59,6 +61,16 @@ Phases, each printing its result on a line of its own:
                knobs on for a rank-4 c3lier LoRA (`train_fused_c3lier`: LoRA
                on every resnet and upsampler conv, so conv3x3 forward and dx,
                and no gnconv3x3; `fused_launches`);
+     bench   — (printed after train_fused_c3lier) the measurement entry
+               points in process: `leco_tpu_torch.bench.main` knobs off
+               (kernels 1-3) and with every knob on, LECO_FLASH_PACKED=1 too
+               (kernels 4-8), each run's launches exactly what the warm-up
+               and the seeded t_to sample imply, its one JSON line parsed
+               (finite positive it/s, finite losses, 0 < mfu <= 1, the
+               library not built again); `scripts/bench_full.main` cut to 20
+               iterations (the record's fields, exact launches, the
+               metrics.jsonl lines, the final save read back);
+               `scripts/profile_unet.main` at 2 calls a timing (0 < MFU <= 1);
   9. cli     — the repo's default recipe through the port's own entry point,
                `leco_tpu_torch.train_lora.main` (what `python -m
                leco_tpu_torch.train_lora --config_file ...` runs): a random
@@ -1057,45 +1069,54 @@ def phase_unet_fused(bundle, device) -> dict:
 
 def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
     """One train step (t_to inner forwards + the 3B references + the
-    differentiated target) under torch.profiler: the device's busy share and
-    the kernels that take its time. Then the same step with the kernels and
-    with plain attention, in turns (flash, plain, plain, flash)."""
+    differentiated target) under torch.profiler, read by
+    `scripts/profile_step.analyze`: the device's busy and idle share, the
+    kernels that take its time, the time by category and by UNet
+    component. Then the same step with the kernels and with plain
+    attention, in turns (flash, plain, plain, flash); then with the knobs
+    on, profiled the same way, against the knobs off in turns."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from leco_tpu_torch.kernels import timing
     from leco_tpu_torch.prompts import PromptSettings
+    from leco_tpu_torch.scripts import profile_step
     from leco_tpu_torch.train import trainer
     from leco_tpu_torch.train.optim import get_optimizer
 
     settings = PromptSettings.from_dict({"target": "van gogh", "resolution": 512})
     pack = trainer.build_pack(trainer.encode_prompt_pairs([settings], bundle.encode_fn)[0])
     opt = get_optimizer("adamw", list(bundle.lora_params.values()), 1e-4)
-    step = trainer.make_train_step(bundle, opt, 50)
+    step_fn = trainer.make_train_step(bundle, opt, 50)
     gen = torch.Generator(device)
     gen.manual_seed(0)
 
+    def step():
+        step_fn(pack, 1.0, 1.0, timesteps_to, height=512, width=512, generator=gen)
+
     def run():
         t0 = time.perf_counter()
-        step(pack, 1.0, 1.0, timesteps_to, height=512, width=512, generator=gen)
+        step()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    for backend in ("xla", "flash"):  # warm-up: cuDNN/cuBLAS pick algorithms
-        bundle.unet.set_attention_backend(backend)
-        run()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = run()
-    # device-side events only: the kernels (an op's row would count its
-    # kernels' time a second time)
-    kernels = [e for e in timing.device_events(prof.key_averages())
-               if e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    check(busy_us > 0, "the profiler saw no device time")
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
-    flash_us = sum(e.self_device_time_total for e in kernels if "leco::flash_" in e.key)
-    flash_fwd_us = sum(e.self_device_time_total for e in kernels if "flash_fwd_kernel" in e.key)
+    def profiled() -> dict:
+        result = profile_step.profile_steps(step, bundle.unet, device, steps=1)
+        result["top_kernels"] = result["top_kernels"][:15]
+        components = result["by_component_ms_share"]
+        unet_share = sum(share for name, (_, share) in components.items()
+                         if name != profile_step.OUTSIDE)
+        check(result["component_scopes"] > 0 and unet_share > 0.5,
+              f"the UNet components hold {unet_share} of the busy time "
+              f"({result['component_scopes']} scopes on the device timeline)")
+        return result
 
+    def share(result: dict, prefixes: tuple) -> float:
+        return sum(s for name, (_, s) in result["by_category_ms_share"].items()
+                   if name.startswith(prefixes))
+
+    bundle.unet.set_attention_backend("xla")
+    run()  # warm-up of the plain route: cuDNN/cuBLAS pick algorithms
+    bundle.unet.set_attention_backend("flash")
+    off = profiled()
     walls = {"flash": [], "plain": []}
     for backend in ("flash", "plain", "plain", "flash"):
         bundle.unet.set_attention_backend("flash" if backend == "flash" else "xla")
@@ -1104,51 +1125,145 @@ def phase_profile(bundle, device, timesteps_to: int = 10) -> dict:
 
     # the same step with the fused configuration's knobs on
     with fused_knobs(True):
-        run()  # warm-up: cuDNN picks algorithms for the backward's convs
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall_fused = run()
-    fused_kernels = [e for e in timing.device_events(prof.key_averages())
-                     if e.self_device_time_total > 0]
-    busy_fused_us = sum(e.self_device_time_total for e in fused_kernels)
-    check(busy_fused_us > 0, "the profiler saw no device time with the knobs on")
-    top_fused = sorted(fused_kernels, key=lambda e: e.self_device_time_total, reverse=True)[:15]
-    leco_fused_us = sum(e.self_device_time_total for e in fused_kernels
-                        if "leco::" in e.key and "flash_" not in e.key)
-    # each fused kernel's device time in the step: (ms, calls, share of busy)
-    by_kernel = {}
-    for name, fragment in (("geglu", "geglu_kernel"), ("group_norm", "group_norm_kernel"),
-                           ("conv3x3 and gnconv3x3", "conv3x3_kernel"),
-                           ("conv3x3 weight repack", "pack_weight_kernel")):
-        hits = [e for e in fused_kernels if fragment in e.key]
-        us = sum(e.self_device_time_total for e in hits)
-        by_kernel[name] = [us / 1e3, sum(e.count for e in hits), us / busy_fused_us]
+        on = profiled()
     knob_walls = {"on": [], "off": []}
     for side in ("off", "on", "on", "off"):
         with fused_knobs(side == "on"):
             knob_walls[side].append(run())
     return {
         "timesteps_to": timesteps_to,
-        "wall_s_under_profiler": wall,
-        "device_busy_s": busy_us / 1e6,
-        # against the unprofiled step: the profiler slows the host down
-        "device_idle_share": 1.0 - busy_us / 1e6 / min(walls["flash"]),
-        "flash_kernels_share_of_busy": flash_us / busy_us,
-        "flash_fwd_share_of_busy": flash_fwd_us / busy_us,
-        "kernel_launches": sum(e.count for e in kernels),
-        "top_kernels": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top],
+        **off,
+        "flash_kernels_share_of_busy": share(off, ("kernel 1", "kernel 2", "kernel 3")),
+        "flash_fwd_share_of_busy": share(off, ("kernel 1",)),
         "step_s_flash_vs_plain_attention": walls,
-        "knobs_on": {
-            "wall_s_under_profiler": wall_fused,
-            "device_busy_s": busy_fused_us / 1e6,
-            "device_idle_share": 1.0 - busy_fused_us / 1e6 / min(knob_walls["on"]),
-            "fused_kernels_share_of_busy": leco_fused_us / busy_fused_us,
-            "fused_kernel_ms_calls_share": by_kernel,
-            "kernel_launches": sum(e.count for e in fused_kernels),
-            "top_kernels": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
-                            for e in top_fused],
-        },
+        "knobs_on": {**on, "fused_kernels_share_of_busy": share(on, ("kernel 5", "kernel 7",
+                                                                     "kernel 8"))},
         "step_s_knobs_on_vs_off": knob_walls,
     }
+
+
+# phase bench: the port's measurement entry points, in process. bench.main
+# knobs off and on (the knobs-on run with LECO_FLASH_PACKED=1 too: kernels
+# 4-8); bench_full cut to BENCH_FULL_ITERATIONS; profile_unet at
+# PROFILE_UNET_ITERS calls a timing
+BENCH_FULL_ITERATIONS = 20
+PROFILE_UNET_ITERS = 2
+
+
+def entry_point(main_fn, argv: list) -> tuple[dict, dict]:
+    """Run an entry point's `main(argv)` with its standard output captured
+    and echoed -> (its record, the one JSON line it printed, parsed)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        record = main_fn(argv)
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    check(len(lines) == 1, f"{len(lines)} JSON lines printed")
+    return record, lines[0]
+
+
+def finite_positive(x) -> bool:
+    return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+
+
+def bench_run(knobs_on: bool) -> dict:
+    """`leco_tpu_torch.bench.main` on the card, its launches of kernels 1-8
+    held to what the warm-up and the t_to sample imply: t + 2 UNet forwards
+    and one target backward an iteration."""
+    import torch
+
+    from leco_tpu_torch import bench
+
+    with environ({k: v if knobs_on else None for k, v in PARALLEL_KNOBS.items()}):
+        reset_launches()
+        record, line = entry_point(bench.main, ["--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = launches()
+    check(line == record, "the printed line is not the returned record")
+    check(record["metric"] == "LoRA train iters/sec/chip, SD1.5 512px bf16 rank4 ddim",
+          f"metric {record['metric']!r}")
+    t_tos = record["timesteps_to"]
+    check(t_tos == [42, 32, 26, 14, 16, 3, 4, 1, 9, 40, 32, 45], f"t_to sample {t_tos}")
+    forwards = bench.WARM_UP_TIMESTEPS_TO + 2 + 2 * sum(t + 2 for t in t_tos)
+    iterations = 1 + 2 * len(t_tos)
+    if knobs_on:
+        want = {**{name: 0 for name in KERNELS},
+                PACKED: FLASH_ATTENTIONS_PER_FORWARD * forwards,
+                **fused_launches("lierla", forwards, iterations)}
+    else:
+        want = flash_launches(forwards, iterations)
+    check(counts == want, f"bench launches {counts} != {want}")
+    losses = [record["losses"]["warm_up"], *record["losses"]["per_iter"],
+              *record["losses"]["deferred"]]
+    check(all(math.isfinite(v) for v in losses), f"bench losses {losses}")
+    check(finite_positive(record["value"]) and finite_positive(record["per_iter_its_per_sec"]),
+          f"it/s {record['value']}, per_iter {record['per_iter_its_per_sec']}")
+    check(finite_positive(record["mfu"]) and record["mfu"] <= 1, f"mfu {record['mfu']}")
+    check(record["kernels_built_now"] is False, "the bench built the kernels again")
+    check(record["device"].get("nvidia_smi") is not None, f"device {record['device']}")
+    return {"record": record, "launches": counts}
+
+
+def phase_bench(out_dir: Path) -> dict:
+    """The measurement entry points on the card: the bench knobs off, then
+    on; bench_full cut to BENCH_FULL_ITERATIONS iterations (its record, the
+    metrics.jsonl lines, exact launches, the final save read back);
+    profile_unet at PROFILE_UNET_ITERS calls a timing."""
+    import torch
+
+    from leco_tpu_torch.lora import read_safetensors
+    from leco_tpu_torch.scripts import bench_full, profile_unet
+
+    seconds = {}
+    t0 = time.perf_counter()
+    off = bench_run(knobs_on=False)
+    seconds["bench"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on = bench_run(knobs_on=True)
+    seconds["bench_knobs_on"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    full_dir = out_dir / "bench_full"
+    with environ({"LECO_FULL_ITERS": str(BENCH_FULL_ITERATIONS), "LECO_FULL_OUT": str(full_dir)}):
+        reset_launches()
+        full, line = entry_point(bench_full.main, ["--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = launches()
+    seconds["bench_full"] = time.perf_counter() - t0
+    check(line == full, "bench_full: the printed line is not the returned record")
+    check(full["n_losses"] == BENCH_FULL_ITERATIONS and full["losses_finite"],
+          f"bench_full losses: {full['n_losses']}, finite {full['losses_finite']}")
+    check(full["metrics_jsonl_lines"] == BENCH_FULL_ITERATIONS,
+          f"bench_full metrics.jsonl lines {full['metrics_jsonl_lines']}")
+    check(full["saves_written"] == ["van_gogh_last.safetensors"],
+          f"bench_full saves {full['saves_written']}")
+    check(finite_positive(full["steady_state_its_per_sec"])
+          and full["memory_stats"]["max_memory_allocated"] > 0
+          and full["kernels_built_now"] is False, f"bench_full record {full}")
+    records = [json.loads(ln) for ln in (full_dir / "metrics.jsonl").read_text().splitlines()]
+    forwards = sum(r["timesteps_to"] + 2 for r in records)
+    want = flash_launches(forwards, BENCH_FULL_ITERATIONS)
+    check(counts == want, f"bench_full launches {counts} != {want}")
+    state, _ = read_safetensors(full_dir / "van_gogh_last.safetensors")
+    check(len(state) > 0 and all(bool(torch.isfinite(v.float()).all()) for v in state.values()),
+          "bench_full's final save")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    unet, line = entry_point(profile_unet.main, ["--iters", str(PROFILE_UNET_ITERS)])
+    seconds["profile_unet"] = time.perf_counter() - t0
+    check(line == unet, "profile_unet: the printed line is not the returned record")
+    for key, row in unet["results"].items():
+        check(all(finite_positive(row[k]) for k in ("fwd_ms", "fwd_bwd_ms"))
+              and all(0 < row[k] <= 1 for k in ("mfu_fwd", "mfu_fwd_bwd")),
+              f"profile_unet {key}: {row}")
+    torch.cuda.empty_cache()
+    return {"knobs_off": off, "knobs_on": on, "bench_full": full,
+            "bench_full_launches": counts, "profile_unet": unet, "seconds": seconds}
 
 
 def phase_train(bundle, out_dir: Path, fused: bool = False) -> dict:
@@ -3043,6 +3158,8 @@ def main() -> None:
     phase("train_fused_c3lier", train_c3lier)
     del bundle
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("bench", phase_bench(Path(tmp)))
     with tempfile.TemporaryDirectory() as tmp:
         cli = phase_cli(device, Path(tmp))
         phase("cli", cli)

@@ -119,6 +119,7 @@ MAIN_PATH_WITHOUT_EXTRAS = textwrap.dedent(
     import leco_tpu_torch
     for mod in pkgutil.walk_packages(leco_tpu_torch.__path__, "leco_tpu_torch."):
         importlib.import_module(mod.name)
+        print("IMPORTED", mod.name)
     from leco_tpu_torch.config import RootConfig
     from leco_tpu_torch.prompts import PromptSettings
     from leco_tpu_torch.testing import make_random_bundle
@@ -209,3 +210,6 @@ def test_main_path_runs_with_torch_numpy_einops_only():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "MAIN PATH OK" in proc.stdout and "CLI OK" in proc.stdout
     assert "TI CLI OK" in proc.stdout and "INFER OK" in proc.stdout
+    for module in ("bench", "utils.benchkit", "scripts.bench_full", "scripts.bench_xl",
+                   "scripts.profile_step", "scripts.profile_unet"):
+        assert f"IMPORTED leco_tpu_torch.{module}\n" in proc.stdout
