@@ -71,6 +71,21 @@ Phases, each printing its result on a line of its own:
                iterations (the record's fields, exact launches, the
                metrics.jsonl lines, the final save read back);
                `scripts/profile_unet.main` at 2 calls a timing (0 < MFU <= 1);
+     scripts — (printed after bench) the last measurement scripts in process:
+               `scripts/profile_fwd.main` four times (SD1.5 512 px batch 2
+               knobs off, knobs on with LECO_FLASH_PACKED=1, SDXL 1024 px
+               batch 2, and SD1.5 with --attn xla as the control without
+               flash launches), each with its first output finite, exact
+               launches a forward times the calls, device time, and the UNet
+               components holding more than half of it;
+               `scripts/bench_convs.main` (the three layouts, then
+               --matmul), `scripts/bench_pallas_conv.main` (at every shape
+               the kernel within RTOL_FUSED x max|ref| of F.conv2d and its
+               flipped-tap control past that; conv3x3's launches equal to
+               the calls it counted) and `scripts/ab_convfold.main` (SD and
+               --xl: the fold's fp32 pin within its limit, its seamless
+               control past it) at SCRIPTS_ITERS chained calls: every time
+               finite and positive, every MFU in (0, 1];
   9. cli     — the repo's default recipe through the port's own entry point,
                `leco_tpu_torch.train_lora.main` (what `python -m
                leco_tpu_torch.train_lora --config_file ...` runs): a random
@@ -1264,6 +1279,134 @@ def phase_bench(out_dir: Path) -> dict:
     torch.cuda.empty_cache()
     return {"knobs_off": off, "knobs_on": on, "bench_full": full,
             "bench_full_launches": counts, "profile_unet": unet, "seconds": seconds}
+
+
+# phase scripts: the last measurement entry points, in process. profile_fwd
+# on the bare forward (4 runs); the conv microbenchmarks at SCRIPTS_ITERS
+# chained calls a pass (their default is 64)
+SCRIPTS_ITERS = 16
+
+
+def profile_fwd_run(argv: list, knobs: dict, per_forward: dict) -> dict:
+    """`scripts/profile_fwd.main(argv)` with `knobs` set, its launches held
+    to `per_forward` (kernel -> launches a forward) times the calls it made."""
+    import torch
+
+    from leco_tpu_torch.scripts import profile_fwd, profile_step
+
+    with environ(knobs):
+        reset_launches()
+        record, line = entry_point(profile_fwd.main, argv)
+        torch.cuda.synchronize()
+        counts = launches()
+    what = f"profile_fwd {' '.join(argv)} {knobs}"
+    check(line == record, f"{what}: the printed line is not the returned record")
+    check(record["first_output_finite"], f"{what}: the first output is not finite")
+    want = {name: per_forward.get(name, 0) * record["calls"] for name in KERNELS}
+    check(counts == want, f"{what}: launches {counts} != {want}")
+    check(finite_positive(record["device_busy_s"]) and finite_positive(record["wall_ms_per_call"]),
+          f"{what}: busy {record['device_busy_s']}, wall {record['wall_ms_per_call']}")
+    unet_share = sum(share for name, (_, share) in record["by_component_ms_share"].items()
+                     if name != profile_step.OUTSIDE)
+    check(unet_share > 0.5, f"{what}: the UNet components hold {unet_share} of the busy time")
+    torch.cuda.empty_cache()
+    keep = ("model", "res", "batch", "attn", "calls", "wall_ms_per_call", "device_busy_s",
+            "device_idle_share", "kernel_launches", "component_scopes", "by_category_ms_share",
+            "by_component_ms_share", "knobs", "backend_flags")
+    return {**{k: record[k] for k in keep}, "top_kernels": record["top_kernels"][:15],
+            "launches": counts, "unet_share_of_busy": unet_share}
+
+
+def conv_times_ok(timed: dict, what: str, mfu_keys=("mfu", "device_mfu")) -> None:
+    """Every time finite and positive, every MFU in (0, 1]."""
+    check(finite_positive(timed["ms"]) and finite_positive(timed["device_ms"]),
+          f"{what}: ms {timed['ms']}, device_ms {timed['device_ms']}")
+    for key in mfu_keys:
+        check(finite_positive(timed[key]) and timed[key] <= 1, f"{what}: {key} {timed[key]}")
+
+
+def phase_scripts() -> dict:
+    """profile_fwd four times (SD1.5 knobs off, knobs on with the packed
+    route, SDXL at 1024 px, SD1.5 with plain attention), then bench_convs
+    (the three layouts, then --matmul), bench_pallas_conv (its output check
+    at every shape) and ab_convfold (SD and --xl) in process, each printed
+    line the returned record."""
+    import torch
+
+    from leco_tpu_torch.scripts import ab_convfold, bench_convs, bench_pallas_conv
+
+    seconds, out = {}, {}
+    flash = {"attn_fwd": FLASH_ATTENTIONS_PER_FORWARD}
+    knobs_on = {PACKED: FLASH_ATTENTIONS_PER_FORWARD,
+                **fused_launches("lierla", forwards=1, targets=0)}
+    for label, argv, knobs, per_forward in (
+            ("profile_fwd", [], {}, flash),
+            ("profile_fwd_knobs_on", [], PARALLEL_KNOBS, knobs_on),
+            ("profile_fwd_sdxl", ["--model", "sdxl", "--res", str(XL_RESOLUTION)], {},
+             {"attn_fwd": XL_FLASH_PER_FORWARD}),
+            ("profile_fwd_plain_attention", ["--attn", "xla"], {}, {})):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as logdir:
+            out[label] = profile_fwd_run(argv + ["--logdir", logdir], knobs, per_forward)
+        seconds[label] = time.perf_counter() - t0
+
+    iters = ["--iters", str(SCRIPTS_ITERS)]
+    t0 = time.perf_counter()
+    convs, line = entry_point(bench_convs.main, iters)
+    check(line == convs, "bench_convs: the printed line is not the returned record")
+    for row in convs["rows"]:
+        for key in (*bench_convs.LAYOUTS, "im2col"):
+            if row[key] is not None:
+                conv_times_ok(row[key], f"bench_convs {row['case']} {key}")
+    gemms, line = entry_point(bench_convs.main, iters + ["--matmul"])
+    check(line == gemms, "bench_convs --matmul: the printed line is not the returned record")
+    for row in gemms["rows"]:
+        conv_times_ok(row["gemm"], f"bench_convs --matmul {row['case']}")
+    out["bench_convs"], out["bench_convs_matmul"] = convs, gemms
+    seconds["bench_convs"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    reset_launches()
+    kernel, line = entry_point(bench_pallas_conv.main, iters)
+    torch.cuda.synchronize()
+    counts = launches()
+    check(line == kernel, "bench_pallas_conv: the printed line is not the returned record")
+    want = {name: 0 for name in KERNELS}
+    want["conv3x3"] = kernel["kernel_calls"]
+    check(kernel["kernel_calls"] > 0 and counts == want,
+          f"bench_pallas_conv launches {counts} != {want}")
+    for row in kernel["rows"]:
+        for impl in ("xla", "kernel"):
+            what = f"bench_pallas_conv {row['case']} {impl}"
+            conv_times_ok(row[impl], what)
+            check(finite_positive(row[impl]["mfu_adjusted"]),
+                  f"{what}: mfu_adjusted {row[impl]['mfu_adjusted']}")
+        check(finite_positive(row["repack_device_ms"]),
+              f"bench_pallas_conv {row['case']}: repack {row['repack_device_ms']}")
+        held = row["check"]
+        check(kernel["rtol"] == RTOL_FUSED
+              and held["max_abs_err"] <= held["limit"] < held["control_max_abs_err"],
+              f"bench_pallas_conv {row['case']}: the output check {held} at rtol "
+              f"{kernel['rtol']}")
+    out["bench_pallas_conv"] = {**kernel, "launches": counts}
+    seconds["bench_pallas_conv"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    for label, argv in (("ab_convfold", iters), ("ab_convfold_xl", iters + ["--xl"])):
+        t0 = time.perf_counter()
+        fold, line = entry_point(ab_convfold.main, argv)
+        check(line == fold, f"{label}: the printed line is not the returned record")
+        pin = fold["pin"]
+        check(pin["max_abs_diff"] <= pin["limit"] < pin["control_max_abs_diff"],
+              f"{label}: the fold pin {pin}")
+        for row in fold["rows"]:
+            for side in ("plain", "folded"):
+                conv_times_ok(row[side], f"{label} {row['case']} {side}", mfu_keys=())
+        out[label] = fold
+        seconds[label] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return {**out, "seconds": seconds}
 
 
 def phase_train(bundle, out_dir: Path, fused: bool = False) -> dict:
@@ -3160,6 +3303,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase("bench", phase_bench(Path(tmp)))
+    phase("scripts", phase_scripts())
     with tempfile.TemporaryDirectory() as tmp:
         cli = phase_cli(device, Path(tmp))
         phase("cli", cli)

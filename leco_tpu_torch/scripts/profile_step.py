@@ -175,15 +175,16 @@ def attribute(kernels: list, scopes: list) -> list[str]:
     return out
 
 
-def analyze(prof, wall_s: float, steps: int = 1, top: int = 30) -> dict:
-    """The device time of `steps` train steps traced by `prof` (a
-    torch.profiler.profile), a step's unprofiled wall clock `wall_s`:
+def analyze(events, wall_s: float, steps: int = 1, top: int = 30) -> dict:
+    """The device time of `steps` train steps traced in `events` (a
+    session's torch.profiler events, `kernels.timing.profiled`'s), a step's
+    unprofiled wall clock `wall_s`:
     busy seconds and launches a step, the idle share, the top kernels, and
     the time by category and by UNet component (ms a step, share of busy).
     Raises when the profiler saw no device time."""
     from torch.autograd import DeviceType
 
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
     kernels = [e for e in device if not e.is_user_annotation]
     scopes = [e for e in device if e.is_user_annotation and e.name.startswith(SCOPE)]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
@@ -221,9 +222,11 @@ def analyze(prof, wall_s: float, steps: int = 1, top: int = 30) -> dict:
 def profile_steps(step, unet, device: torch.device, steps: int = 2,
                   logdir: Optional[str] = None) -> dict:
     """`step()` (one train step) once warm, once timed unprofiled, then
-    `steps` times under torch.profiler with the UNet's component scopes
-    -> `analyze`'s result; the trace goes to `<logdir>/trace.json`."""
-    from torch.profiler import ProfilerActivity, profile
+    `steps` times under torch.profiler with the UNet's component scopes, in
+    a session that kept its records (`kernels.timing.profiled`: as many
+    device records each step) ->
+    `analyze`'s result; the trace goes to `<logdir>/trace.json`."""
+    from leco_tpu_torch.kernels import timing
 
     def run() -> float:
         t0 = time.perf_counter()
@@ -233,15 +236,12 @@ def profile_steps(step, unet, device: torch.device, steps: int = 2,
 
     run()  # warm-up: cuDNN and cuBLAS pick their algorithms
     wall = run()
-    with component_scopes(unet), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize(device)
+    with component_scopes(unet):
+        prof, events = timing.profiled(step, device, calls=steps, alike=True)
     if logdir is not None:
         os.makedirs(logdir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-    return analyze(prof, wall, steps)
+    return analyze(events, wall, steps)
 
 
 def main(argv=None) -> dict:

@@ -1,5 +1,7 @@
 """Shared record-keeping of the port's measurement entry points
-(`leco_tpu_torch/bench.py`, `scripts/bench_full.py`, `scripts/bench_xl.py`).
+(`leco_tpu_torch/bench.py`, `scripts/bench_full.py`, `scripts/bench_xl.py`),
+and the chained-carry timer of the conv microbenchmarks
+(`scripts/{bench_convs,bench_pallas_conv,ab_convfold}.py`).
 
 Counterpart of the part of `leco_tpu/utils/benchkit.py` that is not about
 the TPU: the measured tree's git SHA, the history file, the `LECO_*` knobs
@@ -14,11 +16,13 @@ counterpart.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 
@@ -118,3 +122,72 @@ def kernel_library(device) -> tuple[bool, float]:
     t0 = time.perf_counter()
     build.library()
     return not (loaded or on_disk), time.perf_counter() - t0
+
+
+def backend_flags() -> dict:
+    """The cuDNN and TF32 settings a measurement ran under (the scripts
+    leave them as the process has them)."""
+    import torch
+
+    return {"cudnn_benchmark": torch.backends.cudnn.benchmark,
+            "cudnn_deterministic": torch.backends.cudnn.deterministic,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def chained_times(fn: Callable, x, iters: int = 64, repeats: int = 1) -> dict:
+    """Time `iters` calls of `fn` chained through the carry (c = fn(c),
+    starting from `x`) after one warm pass of as many calls.
+
+    Returns {"s": the best over `repeats` passes of the seconds a call,
+    "device_ms": the device's own ms a call, or None}. On a CUDA `x` a pass
+    is timed by CUDA events (the host's launches count), and `device_ms` is
+    `kernels.timing.device_ms` over the same chain (the carry back to `x`
+    every `iters` calls): the median of `repeats` samples of `iters` calls.
+    On the CPU a pass is timed by the host clock and no device time exists.
+    So `fn` runs (1 + repeats) x iters times, and on the card as often
+    again as `device_ms` calls it."""
+    import torch
+
+    if iters < 1 or repeats < 1:
+        raise ValueError(f"iters {iters} and repeats {repeats} must be positive")
+    on_card = x.is_cuda
+
+    def chain():
+        c = x
+        for _ in range(iters):
+            c = fn(c)
+        return c
+
+    chain()
+    if on_card:
+        torch.cuda.synchronize(x.device)
+    best = math.inf
+    for _ in range(repeats):
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            chain()
+            end.record()
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            chain()
+            seconds = time.perf_counter() - t0
+        best = min(best, seconds / iters)
+    device_ms = None
+    if on_card:
+        from leco_tpu_torch.kernels import timing
+
+        carry = {"c": x, "n": 0}
+
+        def step():
+            if carry["n"] % iters == 0:
+                carry["c"] = x
+            carry["c"] = fn(carry["c"])
+            carry["n"] += 1
+
+        device_ms = timing.device_ms(step, calls=iters, repeats=repeats, warmup=0)
+    return {"s": best, "device_ms": device_ms}

@@ -348,7 +348,7 @@ def test_analyze_a_synthetic_trace():
         device_event(9, "Optimizer.step#AdamW.step", 39, 56, scope=True),
         FunctionEvent(id=10, name="aten::mm", thread=0, start_us=0, end_us=100),  # CPU
     ]
-    out = profile_step.analyze(SimpleNamespace(events=lambda: events), wall_s=100e-6)
+    out = profile_step.analyze(events, wall_s=100e-6)
     assert out["device_busy_s"] == pytest.approx(30e-6)
     assert out["device_idle_share"] == pytest.approx(0.7)
     assert (out["kernel_launches"], out["component_scopes"]) == (5, 3)
@@ -360,7 +360,7 @@ def test_analyze_a_synthetic_trace():
     ms = {k: v[0] for k, v in out["by_component_ms_share"].items()}
     assert ms == pytest.approx({"attn1(self)/core": 0.010, "attn1(self)/to_q": 0.010,
                                 "unet/other": 0.004, profile_step.OUTSIDE: 0.006})
-    halved = profile_step.analyze(SimpleNamespace(events=lambda: events), 100e-6, steps=2)
+    halved = profile_step.analyze(events, 100e-6, steps=2)
     assert halved["device_busy_s"] == pytest.approx(15e-6)
 
 
@@ -381,7 +381,7 @@ def test_component_scopes_on_the_cpu_and_no_device_time_raises():
             "leco/updown/sample", "leco/conv_in/out"} <= set(names)
     assert not any(m._forward_hooks or m._forward_pre_hooks for m in bundle.unet.modules())
     with pytest.raises(RuntimeError, match="no device time"):
-        profile_step.analyze(prof, wall_s=1.0)
+        profile_step.analyze(prof.events(), wall_s=1.0)
 
 
 def test_components_are_the_jax_buckets():

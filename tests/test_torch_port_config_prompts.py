@@ -211,5 +211,6 @@ def test_main_path_runs_with_torch_numpy_einops_only():
     assert "MAIN PATH OK" in proc.stdout and "CLI OK" in proc.stdout
     assert "TI CLI OK" in proc.stdout and "INFER OK" in proc.stdout
     for module in ("bench", "utils.benchkit", "scripts.bench_full", "scripts.bench_xl",
-                   "scripts.profile_step", "scripts.profile_unet"):
+                   "scripts.profile_step", "scripts.profile_unet", "scripts.profile_fwd",
+                   "scripts.bench_convs", "scripts.bench_pallas_conv", "scripts.ab_convfold"):
         assert f"IMPORTED leco_tpu_torch.{module}\n" in proc.stdout
