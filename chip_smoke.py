@@ -61,6 +61,22 @@ Phases, each printing its result on a line of its own:
                knobs on for a rank-4 c3lier LoRA (`train_fused_c3lier`: LoRA
                on every resnet and upsampler conv, so conv3x3 forward and dx,
                and no gnconv3x3; `fused_launches`);
+     jax_knobs — (printed after train_fused) two of the JAX trainer's
+               last runtime knobs on the lierla bundle: the train step's
+               inner denoise at t_to 10 with the LoRA folded (the port's
+               route) and on the literal LoRA branch (the JAX trainer's
+               LECO_FOLD_INNER=0), a LoRA with seeded nonzero up weights,
+               the same latents: the literal denoise within RTOL_UNET x
+               max|ref| of the fold's, a LoRA-off control at least 3x past
+               that, equal flash launches; the two routes in turns (fold,
+               literal, literal, fold, twice): the denoise's ms by CUDA
+               events, then the device busy time of a denoise step in each
+               route and of the fold; one 512 px
+               forward at batch 2 with the knobs on and
+               LECO_GNCONV_KERNEL=0: gnconv3x3 launched 0 times, every
+               resnet conv through the GroupNorm kernel and conv3x3, the
+               output bitwise the forward's with LECO_RESNET_FUSED unset,
+               and the forward's device time with and without the variable;
      bench   — (printed after train_fused_c3lier) the measurement entry
                points in process: `leco_tpu_torch.bench.main` knobs off
                (kernels 1-3) and with every knob on, LECO_FLASH_PACKED=1 too
@@ -96,7 +112,9 @@ Phases, each printing its result on a line of its own:
                examples/prompts.yaml as it is (512 px, batch 2); run with
                LECO_FLASH_PACKED unset (the 3-d flash kernels) and set to 1
                (the packed kernel), each with exact launch counts, finite
-               losses and saves that read back equal;
+               losses and saves that read back equal; the default run with
+               LECO_TRAIN_STAGES=1, its eight setup stages printed in order
+               with times that never decrease (the packed run prints none);
  10. recipes — every SD1.x/2.x training option of the JAX trainer, cuDNN
                deterministic: examples/unreal_config.yaml and
                unreal_prompts.yaml (SD2.1, Lion, cosine, rank 16, 512/640/768
@@ -201,6 +219,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1168,13 +1187,9 @@ PROFILE_UNET_ITERS = 2
 def entry_point(main_fn, argv: list) -> tuple[dict, dict]:
     """Run an entry point's `main(argv)` with its standard output captured
     and echoed -> (its record, the one JSON line it printed, parsed)."""
-    import io
-
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    with echoed_stdout() as out:
         record = main_fn(argv)
     text = out.getvalue()
-    print(text, end="", flush=True)
     lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
     check(len(lines) == 1, f"{len(lines)} JSON lines printed")
     return record, lines[0]
@@ -1506,6 +1521,233 @@ def phase_train(bundle, out_dir: Path, fused: bool = False) -> dict:
             "lora_layers": n_layers, "lora_tensors_changed": changed}
 
 
+# phase jax_knobs: the JAX trainer's last runtime knobs on the SD1.5 bundle.
+# The fold A/B runs the step's inner denoise at this t_to; its LoRA gets
+# seeded nonzero up weights of this std (at zero the fold and the literal
+# branch agree trivially), which must move the denoise so far that the
+# LoRA-off control misses the RTOL_UNET limit by FOLD_CONTROL_FACTOR or
+# more; the two routes are timed in the turns of FOLD_TURNS ("on": the
+# literal branch)
+KNOBS_TIMESTEPS_TO = 10
+FOLD_LORA_UP_STD = 1.0
+FOLD_CONTROL_FACTOR = 3.0
+FOLD_TURNS = ("fold", "on", "on", "fold") * 2
+GNCONV_TIMED_CALLS = 3
+
+
+def seed_lora_up(bundle, std: float, seed: int = 0) -> None:
+    """Every `lora_up` of the bundle's LoRA drawn from N(0, std²), seeded."""
+    import torch
+
+    gen = torch.Generator(bundle.device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for name, p in sorted(bundle.lora_params.items()):
+            if name.endswith("lora_up"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device,
+                                    dtype=p.dtype) * std)
+
+
+def fold_ab(bundle, device) -> dict:
+    """The inner loop's LoRA fold against the literal LoRA branch (the JAX
+    trainer's LECO_FOLD_INNER=0; the port always folds). The train step's
+    inner denoise (KNOBS_TIMESTEPS_TO DDIM steps of 50, guidance 3, one
+    prompt's CFG batch of 2) from the same latents under `folded_lora` and
+    under `lora_mode(unet, "on")`, the LoRA's up weights seeded nonzero:
+    the literal denoise within RTOL_UNET x max|the fold's|, the same
+    denoise with the LoRA off (the control) at least FOLD_CONTROL_FACTOR
+    times that limit away, the flash launches of t_to forwards in each.
+    Then the two routes in the turns of FOLD_TURNS: the whole denoise by
+    CUDA events (the host's time counts); after those turns, in the same
+    turns, the device busy time of one denoise step inside the route and,
+    in each fold turn, of the fold itself (`kernels/timing.profiled`; a
+    session of the whole denoise's launches would take the profiler
+    seconds to read) -> each route's samples and median."""
+    import functools
+
+    import torch
+
+    from leco_tpu_torch.kernels import timing
+    from leco_tpu_torch.lora import folded_lora, lora_mode
+    from leco_tpu_torch.prompts import PromptSettings
+    from leco_tpu_torch.train import diffusion as diff
+    from leco_tpu_torch.train import trainer
+
+    settings = PromptSettings.from_dict({"target": "van gogh", "resolution": SD15_RESOLUTION})
+    pack = trainer.build_pack(trainer.encode_prompt_pairs([settings], bundle.encode_fn)[0])
+    original = {k: v.detach().clone() for k, v in bundle.lora_params.items()}
+    seed_lora_up(bundle, FOLD_LORA_UP_STD)
+    state_n = bundle.scheduler.set_timesteps(50)
+    gen = torch.Generator(device)
+    gen.manual_seed(0)
+    latents = diff.get_initial_latents(gen, state_n, 1, SD15_RESOLUTION, SD15_RESOLUTION,
+                                       device)
+
+    def denoise(mode: str, steps: int = KNOBS_TIMESTEPS_TO):
+        route = folded_lora(bundle.unet) if mode == "fold" else lora_mode(bundle.unet, mode)
+        with torch.no_grad(), route:
+            return diff.diffusion(bundle.unet, state_n, latents, pack["inner_embeds"], steps,
+                                  guidance_scale=3.0)
+
+    out, counts = {}, {}
+    for mode in ("fold", "on", "off"):
+        reset_launches()
+        out[mode] = denoise(mode).float()
+        torch.cuda.synchronize()
+        counts[mode] = launches()
+    ref = out["fold"]
+    size = ref.abs().max().item()
+    limit = RTOL_UNET * size
+    err = (out["on"] - ref).abs().max().item()
+    control_err = (out["off"] - ref).abs().max().item()
+    check(bool(torch.isfinite(ref).all() and torch.isfinite(out["on"]).all()),
+          "non-finite inner denoise")
+    check(err <= limit, f"the literal LoRA branch's denoise {err} > {RTOL_UNET} x {size}")
+    check(control_err >= FOLD_CONTROL_FACTOR * limit,
+          f"the LoRA-off control {control_err} misses the fold limit {limit} by less than "
+          f"{FOLD_CONTROL_FACTOR}x")
+    want = flash_launches(KNOBS_TIMESTEPS_TO, 0)
+    for mode, got in counts.items():
+        check(got == want, f"{mode} denoise: launches {got} != {want}")
+
+    def busy_ms(fn) -> float:
+        return timing.per_call_ms(timing.profiled(fn, device)[1], 1)
+
+    def fold_and_drop():
+        with folded_lora(bundle.unet):
+            pass
+
+    wall = {mode: [] for mode in FOLD_TURNS}
+    step_busy = {mode: [] for mode in FOLD_TURNS}
+    fold_busy = []
+    for mode in FOLD_TURNS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        denoise(mode)
+        end.record()
+        end.synchronize()
+        wall[mode].append(start.elapsed_time(end))
+    for mode in FOLD_TURNS:
+        route = folded_lora(bundle.unet) if mode == "fold" else lora_mode(bundle.unet, mode)
+        with torch.no_grad(), route:
+            step_busy[mode].append(busy_ms(functools.partial(
+                diff.diffusion, bundle.unet, state_n, latents, pack["inner_embeds"], 1,
+                guidance_scale=3.0)))
+        if mode == "fold":
+            with torch.no_grad():
+                fold_busy.append(busy_ms(fold_and_drop))
+    with torch.no_grad():
+        for k, p in bundle.lora_params.items():
+            p.copy_(original[k])
+    result = {"timesteps_to": KNOBS_TIMESTEPS_TO, "lora_up_std": FOLD_LORA_UP_STD,
+              "denoised_err": err, "denoised_limit": limit, "denoised_control": control_err,
+              "max_abs_ref": size, "launches": counts["fold"], "turns": list(FOLD_TURNS),
+              "denoise_ms": wall, "step_busy_ms": step_busy, "fold_busy_ms": fold_busy,
+              "denoise_ms_median": {m: statistics.median(t) for m, t in wall.items()},
+              "step_busy_ms_median": {m: statistics.median(t) for m, t in step_busy.items()},
+              "fold_busy_ms_median": statistics.median(fold_busy)}
+    print(f"jax_knobs fold A/B (t_to {KNOBS_TIMESTEPS_TO}): denoised error {err} (limit "
+          f"{limit}, LoRA-off control {control_err}); turns {list(FOLD_TURNS)}: denoise ms "
+          f"{json.dumps(wall)}; device busy ms of a denoise step {json.dumps(step_busy)}, "
+          f"of the fold {json.dumps(fold_busy)}", flush=True)
+    return result
+
+
+def gnconv_ab(bundle, device) -> dict:
+    """One 512 px forward at batch 2 with the fused knobs on and
+    LECO_GNCONV_KERNEL=0: every resnet conv refused by the gnconv gate
+    (gnconv3x3 launched 0 times, the GroupNorm kernel and conv3x3 in its
+    place), the output bitwise the same forward's with LECO_RESNET_FUSED
+    unset; the knobs-on forward's device time with and without the
+    variable (one profiled session of GNCONV_TIMED_CALLS forwards each)."""
+    import torch
+
+    from leco_tpu_torch.kernels import timing
+
+    gen = torch.Generator(device)
+    gen.manual_seed(3)
+    side = SD15_RESOLUTION // 8
+    x = torch.randn((2, 4, side, side), generator=gen, device=device)
+    ctx = torch.randn((2, 77, bundle.unet.cfg.cross_attention_dim), generator=gen,
+                      device=device)
+
+    def forward():
+        return bundle.unet(x, 501.0, ctx)
+
+    def forward_ms() -> float:
+        _, events = timing.profiled(forward, device, calls=GNCONV_TIMED_CALLS, alike=True)
+        return timing.per_call_ms(events, GNCONV_TIMED_CALLS)
+
+    with torch.no_grad(), fused_knobs(True):
+        with environ({"LECO_GNCONV_KERNEL": "0"}):
+            refused = refused_convs("sd15", SD15_RESOLUTION)
+            reset_launches()
+            out = forward().float()
+            torch.cuda.synchronize()
+            counts = launches()
+            refused_ms = forward_ms()
+        with environ({"LECO_RESNET_FUSED": None}):
+            ref = forward().float()
+        forward()  # the gnconv route's first call outside the session
+        fused_ms = forward_ms()
+    convs = unet_convs("sd15", SD15_RESOLUTION)
+    check(len(refused) == len(convs), f"LECO_GNCONV_KERNEL=0 refuses {len(refused)} of "
+                                      f"{len(convs)} resnet convs")
+    check(bool(torch.isfinite(out).all()), "non-finite UNet output under LECO_GNCONV_KERNEL=0")
+    check(torch.equal(out, ref), "LECO_GNCONV_KERNEL=0 is not bitwise the unfused resnet: "
+                                 f"{(out - ref).abs().max().item()}")
+    want = {**{k: 0 for k in FLASH}, "attn_fwd": FLASH_ATTENTIONS_PER_FORWARD, PACKED: 0,
+            **fused_launches("lierla", 1, 0,
+                             convs=(0, len(refused), sum(c[4] for c in refused)))}
+    check(counts == want, f"LECO_GNCONV_KERNEL=0 launches {counts} != {want}")
+    print(f"jax_knobs gnconv A/B: knobs-on forward device ms {fused_ms} (gnconv3x3 on), "
+          f"{refused_ms} (LECO_GNCONV_KERNEL=0)", flush=True)
+    return {"launches": counts, "forward_device_ms": {"gnconv3x3": fused_ms,
+                                                      "gnconv_kernel_0": refused_ms}}
+
+
+def phase_jax_knobs(bundle, device) -> dict:
+    """The fold against the literal LoRA branch and LECO_GNCONV_KERNEL=0 on
+    the SD1.5 bundle (LECO_TRAIN_STAGES=1 rides on phase cli's default
+    run)."""
+    return {"fold": fold_ab(bundle, device), "gnconv": gnconv_ab(bundle, device)}
+
+
+TRAIN_STAGE = re.compile(r"^\[train \+ *(\d+\.\d)s\] (.*)$")
+TRAIN_STAGES = 8
+
+
+def train_stages(text: str) -> list:
+    """The LECO_TRAIN_STAGES=1 lines of a run's output -> [[seconds,
+    message]]: eight, the five setup stages then the loop's three, their
+    times never decreasing."""
+    stages = [[float(m.group(1)), m.group(2)] for m in map(TRAIN_STAGE.match, text.splitlines())
+              if m]
+    check(len(stages) == TRAIN_STAGES, f"{len(stages)} train stages printed")
+    check([msg.split(":")[0] for _, msg in stages] == ["setup"] * 5 + ["loop"] * 3,
+          f"train stages out of order: {stages}")
+    times = [t for t, _ in stages]
+    check(times == sorted(times), f"train stage times decrease: {times}")
+    return stages
+
+
+@contextlib.contextmanager
+def echoed_stdout():
+    """Standard output captured inside the block (the StringIO yielded) and
+    written out after it, also when the block raises."""
+    import io
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            yield out
+    finally:
+        sys.stdout.write(out.getvalue())
+        sys.stdout.flush()
+
+
 def write_config(config: dict, path: Path) -> None:
     """A two-level config dict as block YAML (scalars as JSON, which the
     YAML subset reads as double-quoted strings, numbers, bools, null)."""
@@ -1567,7 +1809,9 @@ def phase_cli(device, out_dir: Path) -> dict:
         name = "packed" if packed else "default"
         save_dir = out_dir / name
         config["save"]["path"] = str(save_dir)
-        with environ({"LECO_FLASH_PACKED": "1" if packed else None}):
+        # the default run prints train()'s setup stages (LECO_TRAIN_STAGES=1)
+        with environ({"LECO_FLASH_PACKED": "1" if packed else None,
+                      "LECO_TRAIN_STAGES": None if packed else "1"}), echoed_stdout() as out:
             run = run_cli(config, out_dir / f"config_{name}.yaml")
         result, counts = run["result"], run["launches"]
 
@@ -1610,6 +1854,14 @@ def phase_cli(device, out_dir: Path) -> dict:
             "seconds_per_iteration": per_iter, "peak_mem_gb": run["peak_mem_gb"],
             "lora_layers": n_layers,
         }
+        if not packed:
+            stages = train_stages(out.getvalue())
+            print(f"cli {name}: train stages (s since train() began) {json.dumps(stages)}",
+                  flush=True)
+            runs[name]["train_stages"] = stages
+        else:
+            check(not any(map(TRAIN_STAGE.match, out.getvalue().splitlines())),
+                  f"{name}: train stages printed with LECO_TRAIN_STAGES unset")
         del run, result, state
     # same weights, seed and schedule: the first loss (forwards only, before
     # any update) on the packed kernel is the 3-d kernels' up to the order of
@@ -3290,6 +3542,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         train_fused = phase_train(bundle, Path(tmp), fused=True)
     phase("train_fused", train_fused)
+    phase("jax_knobs", phase_jax_knobs(bundle, device))
     del bundle
     torch.cuda.empty_cache()
     # c3lier: LoRA on every resnet and upsampler conv, so the resnet convs

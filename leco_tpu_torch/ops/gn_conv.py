@@ -23,7 +23,7 @@ Backward: autograd through `_conv_reference` (the JAX `_vjp_bwd`); the
 gradient of x through the statistics comes from autograd of
 `affine_from_gn`. Layout is the port's NCHW; a and s are fp32 (B, C). The
 knob `LECO_RESNET_FUSED=1` (read at call time) turns the path on in
-`models/unet.py::ResnetBlock2D`.
+`models/unet.py::ResnetBlock2D`; `LECO_GNCONV_KERNEL=0` closes `supports()`.
 
 Under spatial parallelism (`parallel/spatial.py`) a rank's (a, s) come from
 channel sums over every rank's rows (`affine_from_gn(..., group=)`), and
@@ -68,7 +68,11 @@ def supports(shape, cout: int, dtype: torch.dtype, device: torch.device) -> bool
     global H, as the JAX gate sees it under jit): 4 <= h, w <=
     `MAX_FUSED_SIDE` and Cin, Cout >= `MIN_FUSED_CHANNELS` (the caller has
     checked that the conv is 3x3/s1/p1 with a bias). On CUDA the kernel is
-    bf16 only."""
+    bf16 only. `LECO_GNCONV_KERNEL=0` refuses every shape: the JAX
+    package's A/B knob, which sends each fused-resnet conv to the unfused
+    route (the GroupNorm, then the conv)."""
+    if os.environ.get("LECO_GNCONV_KERNEL", "1") == "0":
+        return False
     if len(shape) != 4:
         return False
     if torch.device(device).type == "cuda" and dtype != torch.bfloat16:

@@ -25,7 +25,9 @@ leaves a `_rescue` save and raises) and `logging.use_wandb` (`wandb` is
 imported only then; without it the loop says so and trains on).
 Refused: `step_chunk > 1` (the JAX package's device-side scan, not
 ported). Progress is one printed line per iteration (`Loss*1k`), where the
-reference draws a tqdm bar.
+reference draws a tqdm bar. `LECO_TRAIN_STAGES=1` (the JAX trainer's
+knob, read at call time) prints the setup stages, each with the seconds
+since train() began.
 
 Data, tensor and spatial parallelism (`leco_tpu_torch.parallel`; the CLIs
 build the mesh): a UNet with a parallel context runs each call on this
@@ -52,7 +54,9 @@ import builtins
 import contextlib
 import dataclasses
 import json
+import os
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -290,6 +294,16 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
         if main:
             builtins.print(*args, **kw)
 
+    # LECO_TRAIN_STAGES=1: timestamped setup stages, in the JAX trainer's
+    # format and at its eight points (the time to the first loss, stage by
+    # stage)
+    t_start = time.perf_counter()
+    show_stages = os.environ.get("LECO_TRAIN_STAGES") == "1"
+
+    def stage(msg: str) -> None:
+        if show_stages:
+            print(f"[train +{time.perf_counter() - t_start:7.1f}s] {msg}", flush=True)
+
     metadata = {
         "prompts": ",".join(json.dumps(p.to_dict()) for p in prompts),
         "config": json.dumps(config.to_dict()),
@@ -312,8 +326,10 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
     # ---- prompt encoding, once (train_lora.py:106-137)
     if bundle.encode_fn is None:
         raise ValueError("bundle.encode_fn required")
+    stage("setup: begin prompt encoding")
     pairs = encode_prompt_pairs(prompts, bundle.encode_fn)
     bundle.free_text_encoder()
+    stage("setup: prompts encoded")
 
     lora = bundle.lora_params
     print(f"create LoRA for U-Net: {count_lora_modules(lora)} modules.")
@@ -326,8 +342,10 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
     # before its step, where optax evaluates the schedule
     lr_at = get_lr_schedule(config.train.lr_scheduler, config.train.lr,
                             config.train.iterations, lr_min=config.train.lr / 100)
+    stage("setup: lr schedule built (a host function, evaluated each iteration)")
     optimizer = get_optimizer(config.train.optimizer, list(lora.values()),
                               config.train.lr, config.train.optimizer_args)
+    stage("setup: optimizer built (its state is made at the first step)")
 
     # ---- optional EMA of the LoRA weights, started at the weights
     ema_decay = float(config.train.ema_decay)
@@ -364,6 +382,7 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
             print(f"resumed from {state_dir} at iteration {start_iteration}")
 
     step_fn = make_train_step(bundle, optimizer, config.train.max_denoising_steps)
+    stage("setup: step_fn built (eager: nothing to trace)")
 
     losses: list[float] = []
     saved: list[Path] = []
@@ -405,6 +424,8 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
             if not pending:
                 return
             values = torch.stack([loss for _, loss in pending]).cpu().tolist()
+            if not losses:
+                stage("loop: first losses fetched (device pipeline live)")
             for (meta, _), loss_val in zip(pending, values):
                 j, j_tsto, j_h, j_w = meta
                 if not np.isfinite(loss_val):
@@ -428,6 +449,7 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
 
         iterations = config.train.iterations
         per_steps = config.save.per_steps
+        stage("loop: entering (next: the first step, run eagerly)")
         for i in range(start_iteration, iterations):
             # a failed background writer stops the run at once; the
             # in-memory weights are rescued below
@@ -463,6 +485,8 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
             loss = step_fn(pack, pair.guidance_scale, pair.erase_sign,
                            timesteps_to, height=height, width=width,
                            generator=generator)
+            if i == start_iteration:
+                stage("loop: first step returned (kernels queued)")
             if ema is not None:
                 ema_values = list(ema.values())
                 torch._foreach_mul_(ema_values, ema_decay)
