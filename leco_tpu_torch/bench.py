@@ -28,8 +28,7 @@ Prints one JSON line: the JAX record's fields (metric, value in it/s,
 vs_baseline against the reference's 0.083 it/s on Colab, BASELINE.md, ...)
 with the kernels' build in place of XLA's compile cache, and the card
 (`nvidia-smi`'s name and power limit), TFLOP/s and MFU from the counted
-FLOPs of the timed steps (`scripts/profile_unet.step_flops`). A full-size
-CUDA run is appended to `bench_history_torch.jsonl` at the repo's root.
+FLOPs of the timed steps (`scripts/profile_unet.step_flops`).
 """
 
 from __future__ import annotations
@@ -152,8 +151,7 @@ def flop_rates(bundle, res: int, batch: int, timed: dict) -> dict:
 def main(argv=None, bundle=None) -> dict:
     """Run the bench and print its JSON line; returns the record. `bundle`
     (a ModelBundle on the chosen device) replaces the random full-width
-    SD1.5 bundle: the tests time the tiny UNet so. Only a full-size CUDA run
-    is appended to the history."""
+    SD1.5 bundle: the tests time the tiny UNet so."""
     from leco_tpu_torch.lora import LoRASpec
     from leco_tpu_torch.ops.attention import default_backend
     from leco_tpu_torch.testing import make_sd15_bundle
@@ -174,8 +172,7 @@ def main(argv=None, bundle=None) -> dict:
     batch = int(os.environ.get("LECO_BENCH_BATCH", "1"))
     res = int(os.environ.get("LECO_BENCH_RES", "512"))
     stage(f"attn={attn} remat={remat} batch={batch} res={res}")
-    full_size = bundle is None
-    if full_size:
+    if bundle is None:
         bundle = make_sd15_bundle(spec=LoRASpec(rank=4, alpha=1.0), attn_backend=attn,
                                   device=device)
     bundle.unet.set_attention_backend(attn)
@@ -208,8 +205,6 @@ def main(argv=None, bundle=None) -> dict:
         "losses": timed["losses"],
     }
     print(json.dumps(result), flush=True)
-    if full_size and device.type == "cuda":
-        benchkit.append_history(result)
     return result
 
 

@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from leco_tpu_torch.utils.profiling import count, span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 LIB_NAME = "libleco_kernels.so"
@@ -94,6 +96,7 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    count("kernels.nvcc_runs")
     tag = f"{os.getpid()}.tmp"
     objects = {src: out_dir / f"{src.stem}.{tag}.o" for src in sorted(CSRC.glob("*.cu"))}
     cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
@@ -123,11 +126,12 @@ def build() -> Path:
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels, with argtypes set."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    with span("leco.kernels.library"):
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -72,6 +72,7 @@ from leco_tpu_torch.ops import geglu as geglu_ops
 from leco_tpu_torch.ops import gn_conv
 from leco_tpu_torch.parallel import sharding as tp_ops
 from leco_tpu_torch.parallel import spatial
+from leco_tpu_torch.utils.profiling import span
 
 LORA_PREFIX_UNET = "lora_unet"
 MODES = ("on", "off", "folded")
@@ -456,7 +457,7 @@ def folded_lora(model: nn.Module):
     """Fold each LoRA into its base weight once, run the block in "folded"
     mode, and drop the folded copies after it."""
     layers = [m for _, m in lora_layers(model)]
-    with torch.no_grad():
+    with torch.no_grad(), span("leco.fold"):
         for m in layers:
             m.fold()
     try:

@@ -26,8 +26,7 @@ Environment, as the JAX script reads it:
                    on the CPU: `--device cpu`)
   LECO_FULL_OUT    save directory (default leco_full_run_b<batch> in the
                    temp directory; it persists across runs)
-`--device` defaults to cuda and raises without a GPU. Only a full-size
-CUDA run is appended to `bench_history_torch.jsonl`.
+`--device` defaults to cuda and raises without a GPU.
 """
 
 from __future__ import annotations
@@ -189,9 +188,6 @@ def main(argv=None) -> dict:
         "device": benchkit.device_record() if device.type == "cuda" else None,
     }
     print(json.dumps(record), flush=True)
-    # tiny and CPU runs check the instrumentation; they are not measurements
-    if device.type == "cuda" and not tiny:
-        benchkit.append_history(record)
     return record
 
 

@@ -9,8 +9,7 @@ timed by `leco_tpu_torch.bench`'s protocol: one warm-up iteration at
 timesteps_to 25, then the seeded sample (6 draws on CUDA, 2 on the CPU)
 per_iter and deferred. LECO_BENCH_RES (default 1024) and LECO_BENCH_ATTN
 are read as the JAX script reads them. `--device` defaults to cuda and
-raises without a GPU. Prints one JSON line; a full-size CUDA run is
-appended to `bench_history_torch.jsonl`.
+raises without a GPU. Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -29,8 +28,7 @@ def metric(res: int) -> str:
 
 def main(argv=None, bundle=None) -> dict:
     """Run the bench and print its JSON line; returns the record. `bundle`
-    replaces the random full-width SDXL bundle (the tests pass a tiny one);
-    only a full-size CUDA run is appended to the history."""
+    replaces the random full-width SDXL bundle (the tests pass a tiny one)."""
     from leco_tpu_torch.bench import flop_rates, stage_printer, time_train_steps, ttfi_fields
     from leco_tpu_torch.lora import LoRASpec
     from leco_tpu_torch.ops.attention import default_backend
@@ -49,8 +47,7 @@ def main(argv=None, bundle=None) -> dict:
     stage = stage_printer("bench-xl", t0)
     stage(f"platform={benchkit.platform(device)} attn={attn} res={res}")
 
-    full_size = bundle is None
-    if full_size:
+    if bundle is None:
         bundle = make_sdxl_bundle(spec=LoRASpec(rank=4, alpha=1.0), attn_backend=attn,
                                   device=device)
         stage("bundle built (SDXL 2.6B)")
@@ -75,8 +72,6 @@ def main(argv=None, bundle=None) -> dict:
         "losses": timed["losses"],
     }
     print(json.dumps(result), flush=True)
-    if full_size and device.type == "cuda":
-        benchkit.append_history(result)
     return result
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from leco_tpu_torch.ops import schedulers as sched
+from leco_tpu_torch.utils.profiling import count
 
 UNET_IN_CHANNELS = 4  # train_util.py:12
 VAE_SCALE_FACTOR = 8  # train_util.py:13
@@ -96,6 +97,7 @@ def diffusion(unet: Callable, state: sched.SchedulerState, latents: torch.Tensor
     history = (torch.zeros((sched.LMS_ORDER,) + tuple(latents.shape), dtype=torch.float32,
                            device=latents.device) if kind == "lms" else None)
     for i in range(total_timesteps):
+        count("unet.inner_calls")
         noise_pred = predict_noise(unet, state, i, latents, text_embeddings,
                                    guidance_scale=guidance_scale,
                                    added_cond_kwargs=added_cond_kwargs)

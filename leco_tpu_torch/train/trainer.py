@@ -56,7 +56,6 @@ import dataclasses
 import json
 import os
 import threading
-import time
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -85,6 +84,7 @@ from leco_tpu_torch.prompts import (
 )
 from leco_tpu_torch.train import diffusion as diff
 from leco_tpu_torch.train.optim import get_lr_schedule, get_optimizer
+from leco_tpu_torch.utils.profiling import RECORDER, clock_ns, span
 
 
 @dataclasses.dataclass
@@ -138,55 +138,67 @@ def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
              timesteps_to: int, *, height: int, width: int,
              generator: Optional[torch.Generator] = None,
              latents: Optional[torch.Tensor] = None) -> torch.Tensor:
-        batch = pack["target_embeds"].shape[0]
-        if latents is None:
-            latents = diff.get_initial_latents(
-                generator, state_n, batch, height, width, bundle.device
-            )
-
-        def noise(i: int) -> torch.Tensor:  # ddpm / euler_a: one draw per step
-            return torch.randn(latents.shape, generator=generator, device=latents.device,
-                               dtype=torch.float32)
-
-        with torch.no_grad():
-            # ---- inner partial denoise, LoRA folded, guidance 3
-            # (train_lora.py:179-193)
-            with folded_lora(unet):
-                denoised = diff.diffusion(
-                    unet, state_n, latents, pack["inner_embeds"], timesteps_to,
-                    guidance_scale=inner_guidance_scale,
-                    noise=noise if generator is not None else None,
-                    added_cond_kwargs=pack.get("inner_added"),
+        with span("leco.step"):
+            batch = pack["target_embeds"].shape[0]
+            if latents is None:
+                latents = diff.get_initial_latents(
+                    generator, state_n, batch, height, width, bundle.device
                 )
 
-            # ---- training timestep on the 1000-step schedule
-            # (train_lora.py:195-199)
-            idx = (timesteps_to * num_train_timesteps) // max_denoising_steps
-            t = float(state_full.timesteps[idx])
-            in_scale = float(state_full.input_scales[idx])
+            def noise(i: int) -> torch.Tensor:  # ddpm / euler_a: one draw per step
+                return torch.randn(latents.shape, generator=generator, device=latents.device,
+                                   dtype=torch.float32)
 
-            # ---- 3 reference predictions, LoRA off, one batched call
-            with lora_mode(unet, "off"):
-                ref_preds = unet(denoised.repeat(3, 1, 1, 1) * in_scale, t,
-                                 pack["ref_embeds"], pack.get("ref_added")).float()
-            positive, neutral, uncond = ref_preds.chunk(3, dim=0)
+            with torch.no_grad():
+                # ---- inner partial denoise, LoRA folded, guidance 3
+                # (train_lora.py:179-193)
+                with folded_lora(unet), span("leco.inner_denoise"):
+                    denoised = diff.diffusion(
+                        unet, state_n, latents, pack["inner_embeds"], timesteps_to,
+                        guidance_scale=inner_guidance_scale,
+                        noise=noise if generator is not None else None,
+                        added_cond_kwargs=pack.get("inner_added"),
+                    )
 
-        # ---- differentiated target prediction, LoRA on (train_lora.py:244-256)
-        par = unet.parallel
-        optimizer.zero_grad(set_to_none=True)
-        if par is None:
-            pred = unet(denoised * in_scale, t, pack["target_embeds"], pack.get("target_added"))
-            loss = esd_loss(pred, positive, uncond, neutral, guidance_scale, erase_sign)
-            loss.backward()
-        else:  # this rank's share of the prediction, its local sums reduced
-            pred, plan = par.call(unet.forward_local, denoised * in_scale, t,
-                                  pack["target_embeds"], pack.get("target_added"), gather=False)
-            loss = par.esd_loss(pred, positive, uncond, neutral, guidance_scale, erase_sign,
-                                plan)
-            loss.backward()
-            par.reduce_lora_grads(lora_layers(unet), plan)
-        optimizer.step()
-        return loss.detach()
+                # ---- training timestep on the 1000-step schedule
+                # (train_lora.py:195-199)
+                idx = (timesteps_to * num_train_timesteps) // max_denoising_steps
+                t = float(state_full.timesteps[idx])
+                in_scale = float(state_full.input_scales[idx])
+
+                # ---- 3 reference predictions, LoRA off, one batched call
+                with span("leco.reference_forward"), lora_mode(unet, "off"):
+                    ref_preds = unet(denoised.repeat(3, 1, 1, 1) * in_scale, t,
+                                     pack["ref_embeds"], pack.get("ref_added")).float()
+                positive, neutral, uncond = ref_preds.chunk(3, dim=0)
+
+            # ---- differentiated target prediction, LoRA on (train_lora.py:244-256)
+            par = unet.parallel
+            # outside leco.optimizer: set_to_none launches nothing, and the
+            # gradients stay readable after the step
+            optimizer.zero_grad(set_to_none=True)
+            if par is None:
+                with span("leco.target_forward"):
+                    pred = unet(denoised * in_scale, t, pack["target_embeds"],
+                                pack.get("target_added"))
+                with span("leco.loss"):
+                    loss = esd_loss(pred, positive, uncond, neutral, guidance_scale, erase_sign)
+                with span("leco.backward"):
+                    loss.backward()
+            else:  # this rank's share of the prediction, its local sums reduced
+                with span("leco.target_forward"):
+                    pred, plan = par.call(unet.forward_local, denoised * in_scale, t,
+                                          pack["target_embeds"], pack.get("target_added"),
+                                          gather=False)
+                with span("leco.loss"):
+                    loss = par.esd_loss(pred, positive, uncond, neutral, guidance_scale,
+                                        erase_sign, plan)
+                with span("leco.backward"):
+                    loss.backward()
+                    par.reduce_lora_grads(lora_layers(unet), plan)
+            with span("leco.optimizer"):
+                optimizer.step()
+            return loss.detach()
 
     return step
 
@@ -296,13 +308,17 @@ def train(config: RootConfig, prompts: list[PromptSettings], bundle: ModelBundle
 
     # LECO_TRAIN_STAGES=1: timestamped setup stages, in the JAX trainer's
     # format and at its eight points (the time to the first loss, stage by
-    # stage)
-    t_start = time.perf_counter()
+    # stage); with the recorder on, each is a point span on its clock
+    t_start = clock_ns()
     show_stages = os.environ.get("LECO_TRAIN_STAGES") == "1"
 
     def stage(msg: str) -> None:
+        if RECORDER.on:
+            with span(f"leco.stage: {msg}"):
+                pass
         if show_stages:
-            print(f"[train +{time.perf_counter() - t_start:7.1f}s] {msg}", flush=True)
+            seconds = (clock_ns() - t_start) / 1e9
+            print(f"[train +{seconds:7.1f}s] {msg}", flush=True)
 
     metadata = {
         "prompts": ",".join(json.dumps(p.to_dict()) for p in prompts),

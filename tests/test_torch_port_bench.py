@@ -63,10 +63,9 @@ def jax_metric(script: str, **fields) -> str:
 
 
 def history_digest() -> tuple:
-    """The JAX history's bytes and the port's history file, if any."""
+    """The JAX history's bytes, and whether a port history file exists."""
     jax_history = hashlib.sha256((REPO / "bench_history.jsonl").read_bytes()).hexdigest()
-    ours = benchkit.HISTORY
-    return jax_history, ours.read_bytes() if ours.exists() else None
+    return jax_history, (REPO / "bench_history_torch.jsonl").exists()
 
 
 # ---------------------------------------------------------------------------
@@ -101,19 +100,23 @@ def test_device_record_reads_nvidia_smi_or_says_it_failed(monkeypatch):
     assert "name" not in record and "power_limit" not in record
 
 
-def test_knobs_and_history_append(monkeypatch, tmp_path):
+def test_knobs_and_history_append(monkeypatch, tmp_path, capsys):
+    """The knobs of a record; and a bench run writes no history file, here
+    or at the repo's root (the benchmark keeps the measurements)."""
     monkeypatch.setenv("LECO_ZZ", "1")
     monkeypatch.setenv("LECO_AA", "x")
     monkeypatch.setenv("NOT_LECO", "y")
     knobs = benchkit.knobs()
     assert list(knobs)[0] <= "LECO_AA" and knobs["LECO_ZZ"] == "1" and "NOT_LECO" not in knobs
     assert list(knobs) == sorted(knobs)
-    path = tmp_path / "history.jsonl"
-    benchkit.append_history({"metric": "m", "value": 1.0}, path)
-    benchkit.append_history({"metric": "m", "value": 2.0}, path)
-    entries = [json.loads(ln) for ln in path.read_text().splitlines()]
-    assert [e["value"] for e in entries] == [1.0, 2.0] and all("ts" in e for e in entries)
-    assert benchkit.HISTORY.name == "bench_history_torch.jsonl"
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("LECO_BENCH_RES", "64")
+    before = history_digest()
+    record = bench.main(["--device", "cpu"], bundle=make_random_bundle(seed=0))
+    assert json_lines(capsys.readouterr().out) == [record]
+    assert list(tmp_path.iterdir()) == []
+    assert history_digest() == before == (before[0], False)
+    assert not hasattr(benchkit, "append_history") and not hasattr(benchkit, "HISTORY")
 
 
 # ---------------------------------------------------------------------------

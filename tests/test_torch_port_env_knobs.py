@@ -346,7 +346,7 @@ NOT_PORTED = {
                        "the fold is the faster route on the H100, so the port always folds "
                        "(chip_smoke.py's phase jax_knobs times both routes)",
     "LECO_BENCH_CONTENDED": "a flag the bench supervisor stamped on history records (Not to "
-                            "port); the port's append_history records host_load_1m instead",
+                            "port); the port keeps no bench history",
     "LECO_QUALITY_OUT": "bench_quality's save path; the port's script takes --out",
     "LECO_TPU_GN": "XLA lowerings of the TPU GroupNorm statistics; its 'mxu' value was a "
                    "negative result (ROADMAP, Not to port)",
